@@ -1,0 +1,211 @@
+"""The port's entry points on the CPU: Viewer, CLI, and the view-mode
+server; plus the guards (no CPU fallback when CUDA is asked for, and no
+jax import anywhere in webdgs_tpu_torch)."""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from webdgs_tpu.render.viewer import Viewer as JViewer
+from webdgs_tpu_torch.cli import main as cli_main
+from webdgs_tpu_torch.io.ply import save_ply
+from webdgs_tpu_torch.render.server import ViewerServer, make_http_server
+from webdgs_tpu_torch.render.viewer import (Viewer, frames_to_video,
+                                            render_orbit)
+
+from tests.torch_parity import (CPU, IMG_ATOL, IMG_RTOL, both_scenes,
+                                jax_settings, numpy_scene, torch_settings)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _scene(n=40, seed=30, sh_deg=0):
+    return both_scenes(numpy_scene(n, seed=seed), sh_deg=sh_deg)
+
+
+def test_viewer_render_matches_jax():
+    js, ts = _scene(120, seed=31, sh_deg=3)
+    jv = JViewer(js, 64, 48, jax_settings())
+    tv = Viewer(ts, 64, 48, torch_settings(), device=CPU)
+    for v in (jv, tv):
+        v.frame_scene()
+        v.set_gaussian_scaling(1.3)
+    np.testing.assert_allclose(tv.control.position, jv.control.position,
+                               rtol=1e-6)
+    for downscale in (1, 2):
+        got, want = tv.render(downscale), jv.render(downscale)
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=IMG_RTOL, atol=IMG_ATOL)
+    # adaptive entry capacity follows the reference's ladder
+    assert tv._entry_cap == jv._entry_cap
+
+
+def test_viewer_pointcloud_mode_and_orbit(tmp_path):
+    _, ts = _scene(20)
+    v = Viewer(ts, 32, 32, render_mode="pointcloud", point_size_px=2.0,
+               device=CPU)
+    v.control.position = np.array([0, 0, -5.0], np.float32)
+    img = v.render()
+    lit = img[..., 0] > 0.5
+    assert lit.any()
+    np.testing.assert_allclose(img[lit][:, 0], img[lit][:, 1], atol=1e-5)
+    with pytest.raises(ValueError):
+        v.set_render_mode("bogus")
+
+    paths = render_orbit(ts, tmp_path / "frames", n_frames=2, width=32,
+                         height=32)
+    assert len(paths) == 2 and all(os.path.exists(p) for p in paths)
+    gif = frames_to_video(paths, tmp_path / "orbit.gif", fps=4)
+    assert os.path.getsize(gif) > 0
+
+
+def test_viewer_refuses_cuda_without_a_card(monkeypatch):
+    """No CPU fallback: asking for CUDA where there is none raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, ts = _scene(5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Viewer(ts, 32, 32)  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Viewer(ts, 32, 32, device="cuda:0")
+
+
+def test_cli_render_and_view_on_cpu(tmp_path, capsys):
+    _, ts = _scene(15, seed=32)
+    ply = tmp_path / "scene.ply"
+    save_ply(ts, ply)
+    cli_main(["render", str(ply), "--out", str(tmp_path / "r.png"),
+              "--width", "32", "--height", "32", "--device", "cpu",
+              "--position", "0", "0", "-5"])
+    assert os.path.exists(tmp_path / "r.png")
+    cli_main(["view", str(ply), "--out", str(tmp_path / "fr"), "--orbit",
+              "1", "--width", "32", "--height", "32", "--device", "cpu"])
+    assert os.path.exists(tmp_path / "fr" / "frame_0000.png")
+    with pytest.raises(SystemExit):
+        cli_main(["render", str(tmp_path / "ck.npz"), "--device", "cpu"])
+
+
+def test_module_entry_point_writes_png(tmp_path):
+    from PIL import Image
+    _, ts = _scene(15, seed=33)
+    ply = tmp_path / "scene.ply"
+    save_ply(ts, ply)
+    out = tmp_path / "m.png"
+    subprocess.run([sys.executable, "-m", "webdgs_tpu_torch", "render",
+                    str(ply), "--out", str(out), "--width", "48",
+                    "--height", "32", "--device", "cpu"],
+                   check=True, cwd=ROOT, timeout=120)
+    assert Image.open(out).size == (48, 32)
+
+
+def test_server_frame_stats_control():
+    _, ts = _scene(8, seed=70)
+    viewer = Viewer(ts, 32, 32, device=CPU)
+    viewer.control.position = np.array([0, 0, -5.0], np.float32)
+    vs = ViewerServer(viewer, motion_downscale=4)
+    jpg = vs.frame_jpeg()
+    assert jpg[:2] == b"\xff\xd8"
+    stats = vs.stats()
+    assert stats["points"] == 8 and stats["fps"] > 0
+    assert stats["render_mode"] == "gaussian" and stats["width"] == 32
+    pos0 = viewer.control.position.copy()
+    assert vs.handle_control({"move": [True] + [False] * 5, "dt": 0.5,
+                              "gaussian_scale_delta": 0.5,
+                              "toggle_mode": 1, "bogus": 1}) == ["bogus"]
+    assert not np.allclose(viewer.control.position, pos0)
+    assert viewer.gaussian_scaling == 1.5
+    assert viewer.render_mode == "pointcloud"
+    vs.handle_control({"resize": [200, 100]})
+    assert (viewer.width, viewer.height) == (192, 64)
+    # progressive refine after motion: 4 -> 2 -> 1
+    seen = []
+    orig = viewer.render
+    viewer.render = lambda downscale=1: (seen.append(downscale)
+                                         or orig(downscale=downscale))
+    vs.handle_control({"drag": [2, 0]})
+    vs.frame_jpeg()
+    vs._last_input = 0.0
+    for _ in range(3):
+        vs.frame_jpeg()
+    assert seen == [4, 2, 1, 1]
+
+
+def test_server_http_endpoints():
+    _, ts = _scene(8, seed=71)
+    viewer = Viewer(ts, 32, 32, device=CPU)
+    viewer.control.position = np.array([0, 0, -5.0], np.float32)
+    vs = ViewerServer(viewer)
+    server = make_http_server(vs, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        assert b"webdgs_tpu_torch" in urllib.request.urlopen(
+            url + "/", timeout=60).read()
+        jpg = urllib.request.urlopen(url + "/frame.jpg", timeout=60).read()
+        assert jpg[:2] == b"\xff\xd8"
+        req = urllib.request.Request(url + "/control",
+                                     data=b'{"gaussian_scale_delta": 0.5}',
+                                     method="POST")
+        assert json.loads(urllib.request.urlopen(req, timeout=60).read()) \
+            == {}
+        stats = json.loads(urllib.request.urlopen(url + "/stats",
+                                                  timeout=60).read())
+        assert stats["points"] == 8 and viewer.gaussian_scaling == 1.5
+        for path, data in (("/loss.jpg", None), ("/upload?name=a.ply", b"x"),
+                           ("/upload_done", b"")):
+            req = urllib.request.Request(url + path, data=data,
+                                         method="GET" if data is None
+                                         else "POST")
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(req, timeout=60)
+            assert e.value.code == 501
+            assert b"not yet ported" in e.value.read()
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=10)
+    assert not t.is_alive()
+
+
+def test_port_imports_no_jax():
+    """Every module of webdgs_tpu_torch imports without jax or the JAX
+    package (their __init__s pull in jax and flax)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import webdgs_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'webdgs_tpu_torch.') if m.name != 'webdgs_tpu_torch.__main__']\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'webdgs_tpu' or m.startswith('webdgs_tpu.')]\n"
+        "assert len(names) >= 15, names\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) >= 15
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """A missing CUDA compiler is an error, never a silent fallback."""
+    import shutil
+
+    from webdgs_tpu_torch import _build
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a CUDA toolkit is installed here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert [p.name for p in _build.sources()] == ["expand.cu",
+                                                  "rasterize_fwd.cu"]
