@@ -1,0 +1,192 @@
+"""PyTorch port vs the JAX reference: the rasterizer's VJP (backward
+kernel, plain version on the CPU) and the per-Gaussian segment sum.
+
+The rasterizer VJP is ``torch.autograd`` through ``rasterize_tiles``
+against ``jax.vjp`` of the JAX ``rasterize_tiles`` (Pallas backward kernel
+in interpret mode, f32-exact matmul tier), with random cotangents on all
+8 channels, at normal opacity and at opacity +5 (the 0.99 clamp and the
+saturation masks).  Rows 0-10 are compared scale-normalised at rtol 1e-3 /
+atol 1e-4, the tolerance of tests/test_gradients.py:81-82; rows 11-15 must
+be zero.  Segment sums: f32 rows, scale-normalised rtol 2e-5 (the JAX
+kernel's bf16 hi/lo split carries about 2^-17 relative per row).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from webdgs_tpu.ops import binning as jbin
+from webdgs_tpu.ops import rasterize as jras
+from webdgs_tpu.ops import segsum as jseg
+from webdgs_tpu.ops.projection import project_gaussians as jproject
+from webdgs_tpu_torch.ops import rasterize as tras
+from webdgs_tpu_torch.ops import segsum as tseg
+
+from tests.torch_parity import (both_cameras, both_scenes, jax_settings, np_,
+                                numpy_scene, t_, torch_settings)
+
+
+def _frame(n, seed, w, h, opacity_shift=0.0):
+    params = numpy_scene(n, seed=seed, opacity_shift=opacity_shift)
+    js, _ = both_scenes(params)
+    jc, _ = both_cameras(w, h)
+    s = jax_settings()
+    attrs, aux = jproject(js.params(), js.alive, jc, w, h, 0, s)
+    bins = jbin.bin_splats(aux, w, h, s, attrs=attrs, with_source=False)
+    a16 = jras.pack_entry_attrs(attrs, bins.entry_gauss, bins.entry_valid,
+                                s)
+    ntx, nty = jbin.tile_grid(w, h, s)
+    return a16, bins, ntx, nty
+
+
+def _assert_rows_close(got, want):
+    got, want = np_(got), np.asarray(want)
+    assert not got[11:].any(), "rows 11-15 must be zero"
+    scale = max(np.abs(want[:11]).max(), 1.0)
+    np.testing.assert_allclose(got[:11] / scale, want[:11] / scale,
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("opacity_shift", [0.0, 5.0])
+def test_rasterize_vjp_matches_jax(opacity_shift):
+    a16, bins, ntx, nty = _frame(80, 3, 48, 32, opacity_shift)
+    sj, st = jax_settings(), torch_settings()
+    rng = np.random.default_rng(0)
+    g = rng.normal(0, 1, (ntx * nty, jras.NUM_OUT, st.tile_px)).astype(
+        np.float32)
+
+    out_j, vjp = jax.vjp(lambda a: jras.rasterize_tiles(
+        a, bins.tile_offsets, ntx, nty, sj), a16)
+    (want,) = vjp(jnp.asarray(g))
+
+    a = t_(a16).requires_grad_(True)
+    launches = tras.rasterize_tiles_backward.kernel_launches
+    out_t = tras.rasterize_tiles(a, t_(bins.tile_offsets), ntx, nty, st)
+    (got,) = torch.autograd.grad(out_t, a, t_(g))
+    assert tras.rasterize_tiles_backward.kernel_launches == launches
+    np.testing.assert_allclose(np_(out_t)[:, 0:5], np.asarray(out_j)[:, 0:5],
+                               rtol=1e-4, atol=3e-4)
+    _assert_rows_close(got, want)
+    # slots past the entry total read 0
+    total = int(bins.tile_offsets[-1])
+    assert not np_(got)[:, total:].any()
+
+
+def test_rasterize_vjp_ignores_ncontrib_cotangent():
+    a16, bins, ntx, nty = _frame(60, 5, 48, 32)
+    st = torch_settings()
+    rng = np.random.default_rng(1)
+    g = torch.tensor(rng.normal(0, 1, (ntx * nty, 8, st.tile_px)),
+                     dtype=torch.float32)
+    a = t_(a16).requires_grad_(True)
+    out = tras.rasterize_tiles(a, t_(bins.tile_offsets), ntx, nty, st)
+    (d1,) = torch.autograd.grad(out, a, g, retain_graph=True)
+    g2 = g.clone()
+    g2[:, tras.OUT_NCONTRIB:] = 0.0
+    (d2,) = torch.autograd.grad(out, a, g2)
+    torch.testing.assert_close(d1, d2, rtol=0, atol=0)
+
+
+def _segments(n, e_cap, seed):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 9, n).astype(np.int32)
+    while counts.sum() > e_cap:
+        counts[rng.integers(0, n)] = 0
+    total = int(counts.sum())
+    ids_real = np.repeat(np.arange(n, dtype=np.int32), counts)
+    pad = ids_real[-1] if total else 0
+    ids = np.concatenate([ids_real, np.full(e_cap - total, pad, np.int32)])
+    return counts, ids, total, rng
+
+
+def _assert_sums_close(got, want):
+    got, want = np_(got), np.asarray(want)
+    scale = max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got / scale, want / scale, rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("n,e_cap,cols,seed", [
+    (100, 512, 16, 0), (700, 2048, 16, 1), (37, 256, 16, 2),
+    (1201, 4096, 1, 3)])
+def test_segment_sum_rows_matches_jax(n, e_cap, cols, seed):
+    counts, ids, total, rng = _segments(n, e_cap, seed)
+    rows = (rng.standard_normal((cols, e_cap)) * 8).astype(np.float32)
+    rows[:, total:] = 0
+    want = jseg.segment_sum_rows(jnp.asarray(rows), jnp.asarray(ids),
+                                 jnp.asarray(counts))
+    launches = tseg.segment_sum_rows.kernel_launches
+    # rows already in expansion order: the identity slot map
+    got = tseg.segment_sum_rows(t_(rows), t_(counts),
+                                torch.arange(e_cap, dtype=torch.int32),
+                                torch.ones(e_cap, dtype=torch.bool))
+    assert tseg.segment_sum_rows.kernel_launches == launches  # CPU: plain
+    assert got.shape == (n, cols) and got.dtype == torch.float32
+    _assert_sums_close(got, want)
+
+
+def test_segment_reduce_entries_matches_jax():
+    """Rows in sorted-slot order, a random permutation as the sort's
+    entry_source, invalid tail slots holding garbage that must be
+    masked."""
+    n, e_cap = 300, 1024
+    counts, ids, total, rng = _segments(n, e_cap, 7)
+    perm = rng.permutation(e_cap).astype(np.int32)  # slot -> expansion
+    # valid sorted slots are those whose expansion index is < total
+    order = np.argsort(perm >= total, kind="stable")
+    perm = perm[order]
+    valid = np.arange(e_cap) < total
+    rows = rng.standard_normal((e_cap, 16)).astype(np.float32)
+    rows[~valid] = 1e6  # masked garbage
+    want = jras.segment_reduce_entries(
+        e_cap, jnp.asarray(rows), jnp.asarray(valid), jnp.asarray(perm),
+        jnp.asarray(counts), jax_settings(), jnp.asarray(ids))
+    got = tseg.segment_reduce_entries(t_(rows), t_(valid), t_(perm),
+                                      t_(counts))
+    _assert_sums_close(got, want)
+    # the exact per-Gaussian sums, by numpy
+    exp_rows = np.zeros((e_cap, 16), np.float64)
+    exp_rows[perm[valid]] = rows[valid]
+    ref = np.zeros((n, 16))
+    np.add.at(ref, ids[:total], exp_rows[:total])
+    _assert_sums_close(got, ref.astype(np.float32))
+
+
+def test_inverse_permutation():
+    perm = torch.tensor(np.random.default_rng(4).permutation(97),
+                        dtype=torch.int32)
+    inv = tseg.inverse_permutation(perm)
+    assert torch.equal(perm[inv.long()], torch.arange(97, dtype=torch.int32))
+
+
+def test_pack_gradient_is_segment_sum():
+    """The training pack's VJP equals autograd of the plain gather."""
+    from webdgs_tpu_torch.ops.projection import SplatAttrs
+    rng = np.random.default_rng(6)
+    n, e_cap = 40, 256
+    counts, ids, total, _ = _segments(n, e_cap, 6)
+    perm = torch.tensor(rng.permutation(e_cap).astype(np.int32))
+    perm = perm[torch.argsort((perm >= total).to(torch.int8), stable=True)]
+    entry_gauss = torch.tensor(ids)[perm.long()]
+    valid = torch.arange(e_cap) < total
+
+    def leaves():
+        return SplatAttrs(*(torch.tensor(rng.normal(0, 1, s),
+                                         dtype=torch.float32,
+                                         requires_grad=True)
+                            for s in [(n, 2), (n, 3), (n, 3), (n,),
+                                      (n, 2)]))
+
+    a = leaves()
+    b = SplatAttrs(*(x.detach().clone().requires_grad_(True) for x in a))
+    g = torch.tensor(rng.normal(0, 1, (16, e_cap)), dtype=torch.float32)
+    out_a = tras.pack_entry_attrs(a, entry_gauss, valid, perm,
+                                  torch.tensor(counts))
+    out_b = tras.pack_entry_attrs(b, entry_gauss, valid)
+    torch.testing.assert_close(out_a, out_b, rtol=0, atol=0)
+    ga = torch.autograd.grad(out_a, list(a), g)
+    gb = torch.autograd.grad(out_b, list(b), g)
+    for x, y in zip(ga, gb):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-5)

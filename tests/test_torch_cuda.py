@@ -94,3 +94,122 @@ def test_render_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(got.image.cpu().numpy(),
                                want.image.numpy(), rtol=1e-4, atol=3e-4)
     assert int(got.binning.total_entries) == int(want.binning.total_entries)
+
+
+def _train_frame(cuda, n, w, h, seed, opacity_shift=0.0):
+    """A training frame on the card: projected leaves, binning with the
+    expansion payloads, packed entries, forward tiles."""
+    s = RenderSettings()
+    ts = _scene(n, seed=seed, spread=2.0)
+    ts.opacity_logits += opacity_shift
+    ts = ts.to(cuda)
+    cam = default_camera(w, h, position=(0.0, 0.0, -6.0), device=cuda)
+    attrs, aux = project_gaussians(ts.params(), ts.alive, cam, w, h, 0, s)
+    bins = bin_splats(aux, w, h, s, attrs=attrs, with_source=True)
+    a16 = tras.pack_entry_attrs(attrs, bins.entry_gauss, bins.entry_valid)
+    ntx, nty = -(-w // s.tile_w), -(-h // s.tile_h)
+    out = tras.rasterize_tiles(a16, bins.tile_offsets, ntx, nty, s,
+                               track_ncontrib=False)
+    return s, bins, a16, out, ntx, nty
+
+
+@pytest.mark.parametrize("w,h,bg", [(96, 80, (0.0, 0.0, 0.0)),
+                                    (333, 250, (0.3, 0.6, 0.9))])
+def test_tile_loss_kernel_matches_plain(cuda, w, h, bg):
+    import dataclasses
+    from webdgs_tpu_torch.ops import tile_loss as ttl
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    s, _, _, out, ntx, nty = _train_frame(cuda, 2000, w, h, seed=11)
+    s = dataclasses.replace(s, background=bg)
+    rng = np.random.default_rng(12)
+    target = torch.tensor(rng.random((h, w, 3)), dtype=torch.float32,
+                          device=cuda)
+    cfg = LossConfig()
+    launches = ttl.tile_loss_tiles.kernel_launches
+    dk, sk = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
+    dk2, sk2 = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
+    torch.cuda.synchronize()
+    assert ttl.tile_loss_tiles.kernel_launches == launches + 2
+    assert torch.equal(dk, dk2) and torch.equal(sk, sk2)  # bit-identical
+    dp, sp = ttl.tile_loss_gradient_plain(out, target, w, h, ntx, nty, cfg,
+                                          s)
+    assert float((dk - dp).abs().max()) <= 1e-5
+    torch.testing.assert_close(sk.sum(0), sp.sum(0), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n,w,h,shift", [(300, 96, 80, 0.0),
+                                         (5000, 640, 480, 0.0),
+                                         (3000, 320, 240, 5.0)])
+def test_rasterize_backward_kernel_matches_plain(cuda, n, w, h, shift):
+    s, bins, a16, out, ntx, nty = _train_frame(cuda, n, w, h, seed=13,
+                                               opacity_shift=shift)
+    rng = np.random.default_rng(14)
+    g = torch.tensor(rng.normal(0, 1, out.shape), dtype=torch.float32,
+                     device=cuda)
+    suffix = ((g[:, 0:4] * out[:, 0:4]).sum(1, keepdim=True)
+              + g[:, 4:5] * out[:, 4:5])
+    gpix5 = torch.cat([g[:, 0:4], suffix], dim=1).contiguous()
+    launches = tras.rasterize_tiles_backward.kernel_launches
+    dk = tras.rasterize_tiles_backward(a16, bins.tile_offsets, gpix5, ntx,
+                                       nty, s)
+    dk2 = tras.rasterize_tiles_backward(a16, bins.tile_offsets, gpix5, ntx,
+                                        nty, s)
+    torch.cuda.synchronize()
+    assert tras.rasterize_tiles_backward.kernel_launches == launches + 2
+    assert torch.equal(dk, dk2)  # bit-identical
+    dp = tras.rasterize_tiles_backward_plain(a16, bins.tile_offsets, gpix5,
+                                             ntx, nty, s)
+    scale = max(float(dp.abs().max()), 1.0)
+    assert float((dk - dp).abs().max()) / scale <= 1e-4
+    assert not dk[11:].any()
+
+
+@pytest.mark.parametrize("n,e_cap,seed", [(100, 512, 0), (50_000, 400_000,
+                                                          1)])
+def test_segsum_kernel_matches_plain(cuda, n, e_cap, seed):
+    from webdgs_tpu_torch.ops import segsum as tseg
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 9, n).astype(np.int32)
+    while counts.sum() > e_cap:
+        counts[rng.integers(0, n)] = 0
+    total = int(counts.sum())
+    perm = rng.permutation(e_cap).astype(np.int32)
+    perm = perm[np.argsort(perm >= total, kind="stable")]
+    rows = torch.tensor(rng.standard_normal((16, e_cap)),
+                        dtype=torch.float32, device=cuda)
+    valid = torch.arange(e_cap, device=cuda) < total
+    args = (torch.tensor(counts, device=cuda),
+            tseg.inverse_permutation(torch.tensor(perm, device=cuda)), valid)
+    launches = tseg.segment_sum_rows.kernel_launches
+    k1 = tseg.segment_sum_rows(rows, *args)
+    k2 = tseg.segment_sum_rows(rows, *args)
+    torch.cuda.synchronize()
+    assert tseg.segment_sum_rows.kernel_launches == launches + 2
+    assert torch.equal(k1, k2)
+    p = tseg.segment_sum_rows_plain(rows, *args)
+    scale = max(float(p.abs().max()), 1.0)
+    assert float((k1 - p).abs().max()) / scale <= 1e-5
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One training step on the card against the same step on the CPU:
+    the metrics and the gradients' first moments agree."""
+    from webdgs_tpu_torch.ops.adam import init_adam_state
+    from webdgs_tpu_torch.train.step import train_step
+    w, h = 96, 80
+    ts = _scene(400, seed=15, spread=1.5)
+    rng = np.random.default_rng(16)
+    target = torch.tensor(rng.random((h, w, 3)), dtype=torch.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        sc = ts.to(dev)
+        cam = default_camera(w, h, position=(0.0, 0.0, -5.0), device=dev)
+        res[str(dev)] = train_step(sc, init_adam_state(sc.params()), cam,
+                                   target.to(dev), img_w=w, img_h=h)
+    c, g = res["cpu"], res[str(cuda)]
+    for k in ("l1", "l2", "dssim", "loss", "psnr"):
+        assert abs(float(g.metrics[k]) - float(c.metrics[k])) <= \
+            1e-4 * abs(float(c.metrics[k])), k
+    m_c, m_g = c.opt_state.m, g.opt_state.m.cpu()
+    scale = max(float(m_c.abs().max()), 0.1)
+    assert float((m_g - m_c).abs().max()) / scale <= 1e-3

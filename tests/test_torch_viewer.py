@@ -88,8 +88,13 @@ def test_cli_render_and_view_on_cpu(tmp_path, capsys):
     cli_main(["view", str(ply), "--out", str(tmp_path / "fr"), "--orbit",
               "1", "--width", "32", "--height", "32", "--device", "cpu"])
     assert os.path.exists(tmp_path / "fr" / "frame_0000.png")
-    with pytest.raises(SystemExit):
-        cli_main(["render", str(tmp_path / "ck.npz"), "--device", "cpu"])
+    # checkpoints render too
+    from webdgs_tpu_torch.io.checkpoint import save_checkpoint
+    save_checkpoint(tmp_path / "ck.npz", ts, iteration=3)
+    cli_main(["render", str(tmp_path / "ck.npz"), "--out",
+              str(tmp_path / "ck.png"), "--width", "32", "--height", "32",
+              "--device", "cpu", "--position", "0", "0", "-5"])
+    assert os.path.exists(tmp_path / "ck.png")
 
 
 def test_module_entry_point_writes_png(tmp_path):
@@ -186,13 +191,18 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'webdgs_tpu' or m.startswith('webdgs_tpu.')]\n"
-        "assert len(names) >= 15, names\n"
+        "need = {'webdgs_tpu_torch.ops.' + m for m in ('loss', 'tile_loss',"
+        " 'segsum', 'adam')} | {'webdgs_tpu_torch.train.' + m for m in "
+        "('config', 'step', 'trainer')} | {'webdgs_tpu_torch.io.' + m for m"
+        " in ('checkpoint', 'colmap', 'images')}\n"
+        "assert need <= set(names), sorted(need - set(names))\n"
+        "assert len(names) >= 30, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 15
+    assert int(out.stdout) >= 30
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -207,5 +217,6 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert [p.name for p in _build.sources()] == ["expand.cu",
-                                                  "rasterize_fwd.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "expand.cu", "rasterize_bwd.cu", "rasterize_fwd.cu", "segsum.cu",
+        "tile_loss.cu"]

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points of csrc/*.cu: name -> argtypes (all return cudaError_t)
 SIGNATURES = {
     # words, cum_incl, n, e_cap, out_words, out_ids, stream
@@ -41,6 +42,16 @@ SIGNATURES = {
     # stream
     "webdgs_rasterize_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                              _F, _I, _P, _P),
+    # attrs16, e_len, tile_offsets, gpix5, n_tiles, ntx, tile_w, tile_h,
+    # chunk, alpha_min, alpha_max, t_threshold, log_t_min, d_attrs, stream
+    "webdgs_rasterize_bwd": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _F, _P, _P),
+    # out, target, n_tiles, ntx, tile_w, tile_h, img_w, img_h, l1, l2,
+    # ldssim, c1, c2, bg0, bg1, bg2, dpix, sums, stream
+    "webdgs_tile_loss": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                         _F, _F, _F, _F, _P, _P, _P),
+    # rows, n_rows, row_stride, slots, valid, starts, n, out, stream
+    "webdgs_segsum": (_P, _I, _L, _P, _P, _P, _I, _P, _P),
 }
 
 

@@ -1,20 +1,72 @@
-"""Command-line interface of the port's viewer (counterpart of
-webdgs_tpu/cli.py: the ``render``, ``view`` and ``serve`` view-mode
-commands):
+"""Command-line interface of the port (counterpart of webdgs_tpu/cli.py:
+``train`` without densification, ``render``, ``view`` and the view-mode
+``serve``):
 
-  python -m webdgs_tpu_torch render scene.ply --out img.png [--device cuda]
+  python -m webdgs_tpu_torch train --points points3D.bin \
+      --cameras images.bin cameras.bin --images images/ --no-densify \
+      --out ckpt.npz [--export-ply out.ply] [--device cuda]
+  python -m webdgs_tpu_torch render scene.ply|ckpt.npz --out img.png
   python -m webdgs_tpu_torch view   scene.ply --out frames/ --orbit 24
   python -m webdgs_tpu_torch serve  scene.ply --port 8000
 
-Every command renders on ``--device`` (default ``cuda``) and raises when
-that device is unavailable.  Training, checkpoint export and the benchmark
-are served by the JAX package until their slices are ported.
+Every command runs on ``--device`` (default ``cuda``) and raises when that
+device is unavailable.  Densification, ``--shard dp|gs``, ``serve
+--train``, ``export`` and the benchmark are later slices of the port.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+
+def _add_train_args(t):
+    """Dataset and training flags (those of webdgs_tpu/cli.py)."""
+    t.add_argument("--points", required=True,
+                   help="initial PLY or COLMAP points3D.bin")
+    t.add_argument("--cameras", nargs="+", required=True,
+                   help="images.bin + cameras.bin, or a cameras JSON")
+    t.add_argument("--images", required=True, help="image dir or files")
+    t.add_argument("--iterations", type=int, default=10_000)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--config", default=None,
+                   help="JSON file of deep-partial TrainerConfig overrides")
+    t.add_argument("--resume", default=None,
+                   help="checkpoint .npz to resume from")
+    t.add_argument("--holdout-every", type=int, default=0,
+                   help="hold out every k-th view for evaluation (3DGS "
+                   "convention: 8); 0 trains on everything")
+    t.add_argument("--shard", choices=("none",), default="none",
+                   help="multi-device training is not ported: 'none' only")
+    # loss
+    t.add_argument("--lambda-l1", type=float, default=0.8)
+    t.add_argument("--lambda-l2", type=float, default=0.0)
+    t.add_argument("--lambda-dssim", type=float, default=0.2)
+    # adam
+    t.add_argument("--lr-pos", type=float, default=0.00016)
+    t.add_argument("--lr-color", type=float, default=0.0025)
+    t.add_argument("--lr-opacity", type=float, default=0.05)
+    t.add_argument("--lr-scale", type=float, default=0.005)
+    t.add_argument("--lr-rot", type=float, default=0.001)
+    t.add_argument("--full-sh", action="store_true",
+                   help="train all SH bands (reference trains DC only)")
+    t.add_argument("--lr-pos-final", type=float, default=0.0,
+                   help="enable exponential position-lr decay to this value")
+    t.add_argument("--bias-correction", action="store_true",
+                   help="enable Adam bias correction (reference omits it)")
+    # densify: parsed for flag compatibility; only --no-densify runs
+    t.add_argument("--no-densify", action="store_true",
+                   help="required: densification is not ported yet")
+    t.add_argument("--densify-warmup", type=int, default=500)
+    t.add_argument("--densify-interval", type=int, default=100)
+    t.add_argument("--densify-stop", type=int, default=15_000)
+    t.add_argument("--metric-views", type=int, default=10)
+    t.add_argument("--metric-downscale", type=int, default=2)
+    t.add_argument("--metric-threshold", type=float, default=0.5)
+    t.add_argument("--max-new-points", type=int, default=5000)
+    t.add_argument("--prune-opacity", type=float, default=0.01)
+    t.add_argument("--clone-threshold", type=int, default=500)
+    t.add_argument("--split-scale-threshold", type=float, default=1.0)
 
 
 def _add_common_render_args(p):
@@ -26,7 +78,7 @@ def _add_common_render_args(p):
     p.add_argument("--gaussian-scaling", type=float, default=1.0,
                    help="splat-size multiplier")
     p.add_argument("--device", default="cuda",
-                   help="torch device to render on (default cuda; there is "
+                   help="torch device to run on (default cuda; there is "
                    "no fallback when it is unavailable)")
 
 
@@ -38,13 +90,125 @@ def _settings(args):
 
 
 def _load_scene(args):
+    """A PLY / points3D.bin scene or an ``.npz`` checkpoint's scene."""
+    from webdgs_tpu_torch.io.checkpoint import load_checkpoint
     from webdgs_tpu_torch.io.ply import load_point_cloud
     from webdgs_tpu_torch.render.viewer import resolve_device
 
+    device = resolve_device(args.device)
     if str(args.scene).endswith(".npz"):
-        raise SystemExit("checkpoint (.npz) loading is not yet ported; "
-                         "export a PLY with the JAX package first")
-    return load_point_cloud(args.scene, resolve_device(args.device))
+        scene, _, _ = load_checkpoint(args.scene, device)
+        return scene
+    return load_point_cloud(args.scene, device)
+
+
+def _build_trainer(args):
+    """Load the dataset and construct a Trainer from the flags."""
+    from webdgs_tpu_torch.io.colmap import load_cameras
+    from webdgs_tpu_torch.io.images import load_images, numeric_key
+    from webdgs_tpu_torch.io.ply import load_point_cloud
+    from webdgs_tpu_torch.ops.adam import AdamHyperparameters
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    from webdgs_tpu_torch.render.viewer import resolve_device
+    from webdgs_tpu_torch.train.config import (DensifyPruneConfig,
+                                               DensifySchedule,
+                                               TrainerConfig,
+                                               load_trainer_config)
+    from webdgs_tpu_torch.train.trainer import Trainer
+
+    if not args.no_densify:
+        raise SystemExit(
+            "densification is not ported to webdgs_tpu_torch yet (it is "
+            "the next slice of the port): pass --no-densify")
+    device = resolve_device(args.device)
+    scene = load_point_cloud(args.points, device)
+    cameras = load_cameras(args.cameras)
+    images = load_images(args.images)
+
+    # pair cameras and images by index after name-sorting
+    if all(c.img_name for c in cameras):
+        cameras = sorted(cameras, key=lambda c: numeric_key(c.img_name))
+    n = min(len(cameras), len(images))
+    cameras, images = cameras[:n], images[:n]
+    holdout = ([], [])
+    k = args.holdout_every or 0
+    if k > 1:
+        holdout = ([c for i, c in enumerate(cameras) if i % k == 0],
+                   [m for i, m in enumerate(images) if i % k == 0])
+        cameras = [c for i, c in enumerate(cameras) if i % k != 0]
+        images = [m for i, m in enumerate(images) if i % k != 0]
+    print(f"dataset: {len(cameras)} train / {len(holdout[0])} holdout "
+          f"views; {int(scene.num_alive())} initial points; device "
+          f"{device}")
+
+    cfg = TrainerConfig(
+        loss=LossConfig(lambda_l1=args.lambda_l1, lambda_l2=args.lambda_l2,
+                        lambda_dssim=args.lambda_dssim),
+        adam=AdamHyperparameters(
+            lr_pos=args.lr_pos, lr_color=args.lr_color,
+            lr_opacity=args.lr_opacity, lr_scale=args.lr_scale,
+            lr_rot=args.lr_rot, full_sh=args.full_sh,
+            bias_correction=args.bias_correction,
+            lr_pos_final=args.lr_pos_final,
+            lr_pos_decay_steps=args.iterations),
+        densify=DensifyPruneConfig(
+            schedule=DensifySchedule(
+                enabled=False,
+                warmup_iterations=args.densify_warmup,
+                interval=args.densify_interval,
+                stop_iterations=args.densify_stop),
+            metric_views=args.metric_views,
+            metric_downscale=args.metric_downscale,
+            metric_threshold=args.metric_threshold,
+            max_new_points_per_step=args.max_new_points,
+            prune_opacity=args.prune_opacity,
+            clone_threshold_count=args.clone_threshold,
+            split_scale_threshold=args.split_scale_threshold),
+        max_iterations=args.iterations,
+        seed=args.seed)
+    if args.config:
+        cfg = load_trainer_config(args.config, base=cfg)
+
+    trainer = Trainer(scene, cameras, images, cfg, _settings(args))
+    if args.resume:
+        from webdgs_tpu_torch.io.checkpoint import load_checkpoint
+        ck_scene, ck_opt, meta = load_checkpoint(args.resume, device)
+        trainer.resume_from(ck_scene, ck_opt, meta.get("iteration") or 0)
+        print(f"resumed from {args.resume} at iteration "
+              f"{trainer.iteration}")
+    trainer.dataset_cameras = cameras
+    return trainer, holdout
+
+
+def cmd_train(args):
+    import json
+    from webdgs_tpu_torch.io.checkpoint import save_checkpoint
+    from webdgs_tpu_torch.io.ply import save_ply
+
+    trainer, holdout = _build_trainer(args)
+    trainer.train(log_every=args.log_every,
+                  checkpoint_every=args.checkpoint_every,
+                  checkpoint_path=args.out)
+    # persist the model before the evaluation
+    if args.out:
+        save_checkpoint(args.out, trainer.scene, trainer.opt_state,
+                        iteration=trainer.iteration)
+        print(f"checkpoint -> {args.out}")
+    if args.export_ply:
+        n_out = save_ply(trainer.scene, args.export_ply)
+        print(f"exported {n_out} splats -> {args.export_ply}")
+
+    report = {"iterations": trainer.iteration,
+              "points": trainer.num_points,
+              "iters_per_sec": round(trainer.iters_per_sec, 2),
+              "train": trainer.evaluate()}
+    if holdout[0]:
+        report["holdout"] = trainer.evaluate(views=holdout)
+    print("eval:", json.dumps(report))
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1)
+        print(f"report -> {args.report}")
 
 
 def _viewer(args):
@@ -92,10 +256,25 @@ def cmd_serve(args):
 def build_parser():
     p = argparse.ArgumentParser(
         "webdgs_tpu_torch",
-        description="3D Gaussian Splatting viewer, PyTorch + CUDA port")
+        description="3D Gaussian Splatting trainer and viewer, PyTorch + "
+        "CUDA port")
     sub = p.add_subparsers(dest="command", required=True)
 
-    r = sub.add_parser("render", help="render one frame of a PLY scene")
+    t = sub.add_parser("train", help="train a scene from COLMAP data "
+                       "(--no-densify)")
+    _add_train_args(t)
+    t.add_argument("--log-every", type=int, default=100)
+    t.add_argument("--out", default="checkpoint.npz")
+    t.add_argument("--export-ply", default=None)
+    t.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save --out every N iterations")
+    t.add_argument("--report", default=None,
+                   help="write the end-of-training eval JSON to this file")
+    _add_common_render_args(t)
+    t.set_defaults(fn=cmd_train)
+
+    r = sub.add_parser("render", help="render one frame of a PLY scene or "
+                       "checkpoint")
     r.add_argument("scene")
     r.add_argument("--out", default="render.png")
     r.add_argument("--position", type=float, nargs=3, default=None)
@@ -116,7 +295,7 @@ def build_parser():
 
     sv = sub.add_parser("serve", help="interactive browser viewer (JPEG "
                         "stream + fly controls), view mode")
-    sv.add_argument("scene", help="PLY scene to view")
+    sv.add_argument("scene", help="PLY scene or checkpoint to view")
     sv.add_argument("--port", type=int, default=8000)
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--position", type=float, nargs=3, default=None)

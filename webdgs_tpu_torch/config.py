@@ -2,9 +2,12 @@
 
 Only the semantic fields are carried over.  The TPU execution knobs of the
 reference (``tiles_per_step``, ``dma_group``, ``matmul_precision``,
-``grad_reduce_threshold``, ``segsum_kernel``, ``expand_kernel``,
-``exchange_f16``, ``grad_rows_f16``) have no counterpart: on a CUDA tensor
-the port always runs its kernels, in float32.
+``grad_reduce_threshold``, ``expand_kernel``, ``exchange_f16``) have no
+counterpart: on a CUDA tensor the port always runs its kernels, in
+float32.  The gradient path always takes the exact-f32 segment sum
+(``ops/segsum.py``), which is the reference's default
+(``grad_rows_f16=False``, ``segsum_kernel=True``) without its bf16 hi/lo
+split; the f16 row tier has no counterpart.
 """
 
 from __future__ import annotations

@@ -44,7 +44,7 @@ class Binning(NamedTuple):
     tile_offsets: torch.Tensor  # (T+1,) i32 cumulative entry counts
     tile_counts: torch.Tensor  # (T,) i32 entries per tile
     total_entries: torch.Tensor  # () real entries across all tiles
-    # with_source=True only (the gradient path of a later port)
+    # with_source=True only (the gradient path, render_from_attrs(for_grad))
     entry_source: torch.Tensor | None  # (E,) i32 pre-sort expansion slot
     gauss_counts: torch.Tensor | None  # (N,) i32 kept entries per Gaussian
     expansion_gauss: torch.Tensor | None = None  # (E,) i32 monotone ids

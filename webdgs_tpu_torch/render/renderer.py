@@ -1,5 +1,6 @@
 """Full forward render: scene + camera -> image (counterpart of
-webdgs_tpu/render/renderer.py:27-135).
+webdgs_tpu/render/renderer.py:27-135); ``render_from_attrs(for_grad=True)``
+is the training step's differentiable render.
 
 project -> bin (expand kernel) -> pack -> rasterize (forward kernel) ->
 image.  PyTorch runs eagerly, so there is no jit: ``render_compiled`` is
@@ -46,16 +47,25 @@ def check_frame_supported(img_w: int, img_h: int,
 
 def render_from_attrs(attrs: SplatAttrs, aux: SplatAux, img_w: int,
                       img_h: int, settings: RenderSettings,
-                      entry_capacity: int | None = None):
+                      entry_capacity: int | None = None,
+                      for_grad: bool = False):
     """Bin + rasterize from projected splat attributes; returns the
-    (T, NUM_OUT, P) tile buffer and the Binning."""
+    (T, NUM_OUT, P) tile buffer and the Binning.  Differentiable with
+    respect to ``attrs``.
+
+    ``for_grad``: the gradient path -- the sort carries the expansion-slot
+    payload (``with_source``) so the per-Gaussian gradient is a segment
+    sum, and the n_contrib channel, which only the importance replay
+    reads, is not tracked."""
     ntx, nty = binning_ops.tile_grid(img_w, img_h, settings)
     bins = binning_ops.bin_splats(aux, img_w, img_h, settings,
-                                  capacity=entry_capacity, attrs=attrs)
-    attrs16 = raster_ops.pack_entry_attrs(attrs, bins.entry_gauss,
-                                          bins.entry_valid)
+                                  capacity=entry_capacity,
+                                  with_source=for_grad, attrs=attrs)
+    attrs16 = raster_ops.pack_entry_attrs(
+        attrs, bins.entry_gauss, bins.entry_valid,
+        entry_source=bins.entry_source, gauss_counts=bins.gauss_counts)
     out = raster_ops.rasterize_tiles(attrs16, bins.tile_offsets, ntx, nty,
-                                     settings)
+                                     settings, track_ncontrib=not for_grad)
     return out, bins
 
 

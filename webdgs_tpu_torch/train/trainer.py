@@ -1,0 +1,325 @@
+"""The training orchestrator, single-device and without densification
+(counterpart of webdgs_tpu/train/trainer.py:44-621).
+
+Owns the scene and the optimizer state, draws a random (camera, image)
+pair per step with ``random.Random(config.seed)`` -- the same view
+sequence as the JAX trainer -- runs ``train_step``, adapts the tile-entry
+capacity to the observed entry demand, meters iterations per second,
+snapshots the state and rolls back on a non-finite loss, evaluates PSNR /
+L1 / SSIM, and checkpoints.
+
+Densification (``ops/densify.py``, the importance kernel) and the
+multi-device mesh are a later slice of the port: a config with
+``densify.schedule.enabled`` or a ``mesh`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+import time
+
+import numpy as np
+import torch
+
+from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
+                                     quantize_budget)
+from webdgs_tpu_torch.core.camera import CameraData, make_camera
+from webdgs_tpu_torch.core.scene import GaussianScene
+from webdgs_tpu_torch.ops.adam import AdamState, init_adam_state
+from webdgs_tpu_torch.ops.loss import loss_metrics, pixel_loss_gradient, ssim
+from webdgs_tpu_torch.render.renderer import render
+from webdgs_tpu_torch.train.config import TrainerConfig, _merge_dataclass
+from webdgs_tpu_torch.train.step import train_step
+
+_DENSIFY_NOT_PORTED = (
+    "densification (ops/densify.py, the importance kernel and the "
+    "trainer's densify phase) is not ported yet: it is the next slice of "
+    "webdgs_tpu_torch; train with densify.schedule.enabled=False "
+    "(--no-densify)")
+
+
+def _round_capacity(n: int, granule: int = 4096) -> int:
+    return max(-(-n // granule) * granule, granule)
+
+
+def _group_views(cameras: list[CameraData], images: list[dict],
+                 device: torch.device) -> dict:
+    """Group (camera, image) pairs by resolution; each group holds its
+    device cameras and a stacked (V, H, W, 3) image tensor."""
+    groups: dict[tuple[int, int], dict] = {}
+    for cam_data, img in zip(cameras, images):
+        res = (img["width"], img["height"])
+        g = groups.setdefault(res, {"cams": [], "imgs": []})
+        g["cams"].append(make_camera(cam_data, *res, device=device))
+        g["imgs"].append(img["image"])
+    for g in groups.values():
+        g["imgs"] = torch.tensor(np.stack(g["imgs"], axis=0),
+                                 dtype=torch.float32, device=device)
+        g["count"] = len(g["cams"])
+    return groups
+
+
+class Trainer:
+    def __init__(self, scene: GaussianScene, cameras: list[CameraData],
+                 images: list[dict], config: TrainerConfig = TrainerConfig(),
+                 settings: RenderSettings = DEFAULT_SETTINGS, mesh=None):
+        """Trains on ``scene.device``."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device training (mesh=) is not ported yet; "
+                "webdgs_tpu_torch trains on one device")
+        if config.densify.schedule.enabled:
+            raise NotImplementedError(_DENSIFY_NOT_PORTED)
+        if len(cameras) != len(images):
+            raise ValueError(
+                f"cameras ({len(cameras)}) and images ({len(images)}) must "
+                "pair by index")
+        self.config = config
+        self.settings = settings
+        self.device = scene.device
+        lam = (config.loss.lambda_l1 + config.loss.lambda_l2
+               + config.loss.lambda_dssim)
+        if not 0.99 <= lam <= 1.01:
+            import warnings
+            warnings.warn(f"loss weights sum to {lam:.3f}, expected ~1.0",
+                          stacklevel=2)
+        self.rng = random.Random(config.seed)
+
+        self.groups = _group_views(cameras, images, self.device)
+
+        self.num_points = int(scene.num_alive())
+        self.scene = scene.pad_to(_round_capacity(scene.capacity))
+        self.opt_state = init_adam_state(self.scene.params())
+
+        self.iteration = 0
+        self._entry_cap_value: int | None = None
+        self._entry_cap_peak = 0.0
+        self.step_ms = 0.0
+        self.iters_per_sec = 0.0
+        self._rate_mark: tuple[int, float] | None = None
+        self.last_metrics: dict = {}
+
+    def set_config(self, updates) -> None:
+        """Apply a deep-partial config update (a dict such as
+        ``{"adam": {"lr_pos": 0.0}}``, or a full TrainerConfig)."""
+        new = (updates if isinstance(updates, TrainerConfig)
+               else _merge_dataclass(self.config, updates))
+        if new.densify.schedule.enabled:
+            raise NotImplementedError(_DENSIFY_NOT_PORTED)
+        self.config = new
+
+    def set_settings(self, updates) -> None:
+        """Apply a partial RenderSettings update (or a full one)."""
+        self.settings = (updates if isinstance(updates, RenderSettings)
+                         else dataclasses.replace(self.settings, **updates))
+
+    # ------------------------------------------------------------------
+    def _pick_group(self):
+        total = sum(g["count"] for g in self.groups.values())
+        r = self.rng.randrange(total)
+        for res, g in self.groups.items():
+            if r < g["count"]:
+                return res, g
+            r -= g["count"]
+        raise AssertionError
+
+    # adaptive tile-entry capacity: every O(entries) op is sized by it.  It
+    # starts at the heuristic, then follows the observed per-frame entry
+    # demand with headroom (one host read every ENTRY_CAP_INTERVAL steps).
+    ENTRY_CAP_INTERVAL = 50
+    ENTRY_CAP_HEADROOM = 1.2
+    # the peak decays between observations so an early spike does not
+    # oversize the buffers for good
+    ENTRY_CAP_DECAY = 0.9
+
+    def _entry_cap(self) -> int | None:
+        return self._entry_cap_value
+
+    def _maybe_adapt_entry_cap(self, metrics) -> None:
+        if self.iteration != 1 and self.iteration % self.ENTRY_CAP_INTERVAL:
+            return
+        observed = float(metrics["tile_entries"])
+        self._entry_cap_peak = max(observed,
+                                   self.ENTRY_CAP_DECAY * self._entry_cap_peak)
+        chunk = self.settings.chunk
+        want = quantize_budget(self._entry_cap_peak * self.ENTRY_CAP_HEADROOM,
+                               chunk, chunk * 8)
+        cur = self._entry_cap_value
+        # grow whenever short on headroom; shrink only when far oversized
+        if cur is None or want > cur or want < cur // 2:
+            self._entry_cap_value = want
+
+    def step(self) -> dict:
+        """One training iteration."""
+        t0 = time.perf_counter()
+        (w, h), g = self._pick_group()
+        idx = self.rng.randrange(g["count"])
+        self.scene, self.opt_state, metrics = train_step(
+            self.scene, self.opt_state, g["cams"][idx], g["imgs"][idx],
+            img_w=w, img_h=h, loss_cfg=self.config.loss,
+            hp=self.config.adam, settings=self.settings,
+            entry_capacity=self._entry_cap())
+        self.iteration += 1
+        self._maybe_adapt_entry_cap(metrics)
+        self._finish_step(t0, metrics)
+        return metrics
+
+    RATE_SYNC_INTERVAL = 100
+
+    def _finish_step(self, t0: float, metrics: dict) -> None:
+        """Step time and the iterations/s meter.  A step returns before the
+        device finishes, so the rate spans the wall time between real
+        syncs: every RATE_SYNC_INTERVAL steps one loss scalar is read."""
+        self.step_ms = (time.perf_counter() - t0) * 1e3
+        if self.iteration % self.RATE_SYNC_INTERVAL == 0:
+            _ = float(metrics["loss"])  # block until this step finished
+            now = time.perf_counter()
+            if self._rate_mark is not None:
+                it0, tm = self._rate_mark
+                if self.iteration > it0 and now > tm:
+                    self.iters_per_sec = (self.iteration - it0) / (now - tm)
+            self._rate_mark = (self.iteration, now)
+        self.last_metrics = metrics
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self, max_views: int | None = None,
+                 views: tuple[list, list] | None = None) -> dict:
+        """Mean PSNR / L1 / SSIM over the first ``max_views`` dataset views
+        (all by default).  ``views``: optional (cameras, images) lists to
+        evaluate instead of the training set (e.g. a held-out split)."""
+        groups = (self.groups if views is None
+                  else _group_views(views[0], views[1], self.device))
+        per_view = []
+        remaining = max_views
+        for (w, h), g in groups.items():
+            if remaining is not None and remaining <= 0:
+                break
+            take = g["count"] if remaining is None else min(g["count"],
+                                                            remaining)
+            for i in range(take):
+                pred = render(self.scene, g["cams"][i], w, h, self.settings,
+                              entry_capacity=self._entry_cap()).image
+                m = loss_metrics(pred, g["imgs"][i], self.config.loss)
+                per_view.append(torch.stack(
+                    [m["psnr"], m["l1"], ssim(pred, g["imgs"][i])]))
+            if remaining is not None:
+                remaining -= take
+        if not per_view:
+            return {"psnr": float("nan"), "l1": float("nan"),
+                    "ssim": float("nan"), "views": 0}
+        allv = torch.stack(per_view).cpu().numpy()
+        return {"psnr": float(allv[:, 0].mean()),
+                "l1": float(allv[:, 1].mean()),
+                "ssim": float(allv[:, 2].mean()),
+                "views": int(allv.shape[0])}
+
+    def _view(self, index: int):
+        flat = [(res, g, i) for res, g in self.groups.items()
+                for i in range(g["count"])]
+        return flat[index]
+
+    @torch.no_grad()
+    def render_view(self, index: int) -> torch.Tensor:
+        """Render one dataset view at full resolution, (H, W, 3)."""
+        (w, h), g, i = self._view(index)
+        return render(self.scene, g["cams"][i], w, h, self.settings).image
+
+    @torch.no_grad()
+    def visualize_loss(self, index: int) -> torch.Tensor:
+        """Per-pixel |dL/dpixel| map of a dataset view (the reference's
+        show-loss debug view)."""
+        (w, h), g, i = self._view(index)
+        img = render(self.scene, g["cams"][i], w, h, self.settings,
+                     entry_capacity=self._entry_cap()).image
+        return torch.abs(pixel_loss_gradient(img, g["imgs"][i],
+                                             self.config.loss))
+
+    def set_dataset(self, cameras: list[CameraData],
+                    images: list[dict]) -> None:
+        """Swap the training views mid-training; the scene, optimizer and
+        iteration stay as they are."""
+        if len(cameras) != len(images):
+            raise ValueError(
+                f"cameras ({len(cameras)}) and images ({len(images)}) must "
+                "pair by index")
+        if not cameras:
+            raise ValueError("dataset must contain at least one view")
+        self.groups = _group_views(cameras, images, self.device)
+        self.dataset_cameras = cameras
+
+    def resume_from(self, scene: GaussianScene,
+                    opt_state: AdamState | None, iteration: int) -> None:
+        """Restore training state (e.g. from ``load_checkpoint``)."""
+        cap = _round_capacity(scene.capacity)
+        self.scene = scene.to(self.device).pad_to(cap)
+        if opt_state is not None:
+            self.opt_state = opt_state.to(self.device).pad_to(cap)
+        else:
+            self.opt_state = init_adam_state(self.scene.params())
+        self.iteration = int(iteration)
+        self.num_points = int(self.scene.num_alive())
+
+    # failure recovery: snapshot the training state every interval; a
+    # non-finite loss rolls back to the last good state and continues with
+    # fresh view draws.  Steps build new tensors (nothing is updated in
+    # place), so a snapshot holds references, not copies.
+    SNAPSHOT_INTERVAL = 250
+    MAX_ROLLBACKS = 5
+
+    def _snapshot(self) -> None:
+        self._last_good = (self.scene, self.opt_state, self.iteration,
+                           self.num_points)
+
+    def _rollback(self) -> None:
+        scene, opt, it, npts = self._last_good
+        self.scene, self.opt_state = scene, opt
+        self.iteration, self.num_points = it, npts
+
+    def train(self, num_iterations: int | None = None,
+              log_every: int = 100, log_fn=print,
+              checkpoint_every: int = 0,
+              checkpoint_path: str | None = None) -> dict:
+        """Run ``num_iterations`` steps (default: up to
+        ``config.max_iterations``); returns the last step's metrics."""
+        rollbacks = 0
+        self._snapshot()
+        check_every = min(log_every or self.SNAPSHOT_INTERVAL,
+                          self.SNAPSHOT_INTERVAL)
+        n = num_iterations or self.config.max_iterations
+        for _ in range(n):
+            metrics = self.step()
+            it = self.iteration
+            if (it % check_every == 0
+                    or it % self.SNAPSHOT_INTERVAL == 0):
+                loss = float(metrics["loss"])
+                if not np.isfinite(loss):
+                    rollbacks += 1
+                    if rollbacks > self.MAX_ROLLBACKS:
+                        raise FloatingPointError(
+                            f"loss non-finite after {rollbacks} "
+                            "consecutive rollbacks; training diverged")
+                    if log_fn:
+                        log_fn(f"iter {self.iteration}: loss={loss} -- "
+                               f"rolling back to iteration "
+                               f"{self._last_good[2]}")
+                    self._rollback()
+                    continue
+                if it % self.SNAPSHOT_INTERVAL == 0:
+                    rollbacks = 0
+                    self._snapshot()
+            if log_every and self.iteration % log_every == 0 and log_fn:
+                log_fn(f"iter {self.iteration}: "
+                       f"loss={float(metrics['loss']):.4f} "
+                       f"psnr={float(metrics['psnr']):.2f} "
+                       f"points={self.num_points} "
+                       f"({self.iters_per_sec:.1f} it/s)")
+            if (checkpoint_every and checkpoint_path
+                    and self.iteration % checkpoint_every == 0):
+                from webdgs_tpu_torch.io.checkpoint import save_checkpoint
+                save_checkpoint(checkpoint_path, self.scene,
+                                self.opt_state, iteration=self.iteration)
+            if self.iteration >= self.config.max_iterations:
+                break
+        return {k: float(v) for k, v in self.last_metrics.items()}
