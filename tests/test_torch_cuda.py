@@ -191,6 +191,41 @@ def test_segsum_kernel_matches_plain(cuda, n, e_cap, seed):
     assert float((k1 - p).abs().max()) / scale <= 1e-5
 
 
+@pytest.mark.parametrize("n,w,h,threshold", [(300, 96, 80, 0.3),
+                                             (20_000, 640, 480, 0.5)])
+def test_importance_kernel_matches_plain(cuda, n, w, h, threshold):
+    """The importance kernel on one view's inputs: every slot equal to the
+    plain version on the same card, and bit-identical on repeat."""
+    from webdgs_tpu_torch.ops import importance as timp
+    s = RenderSettings()
+    ts = _scene(n, seed=17, spread=2.0).to(cuda)
+    cam = default_camera(w, h, position=(0.0, 0.0, -6.0), device=cuda)
+    attrs, aux = project_gaussians(ts.params(), ts.alive, cam, w, h, 0, s)
+    bins = bin_splats(aux, w, h, s, attrs=attrs)
+    a16 = tras.pack_entry_attrs(attrs, bins.entry_gauss, bins.entry_valid)
+    ntx, nty = -(-w // s.tile_w), -(-h // s.tile_h)
+    out = tras.rasterize_tiles(a16, bins.tile_offsets, ntx, nty, s)
+    tiles = tras.tiles_to_image(out, ntx, nty, w, h, s)
+    pred = tras.composite_background(tiles, s)
+    noise = np.random.default_rng(18).normal(0.0, 0.1, (h, w, 3))
+    flag = timp.metric_flag_map(pred, pred + torch.tensor(
+        noise, dtype=torch.float32, device=cuda), threshold)
+    pix = torch.stack([flag, tiles[..., tras.OUT_NCONTRIB]], dim=-1)
+    pix_tiles = tras.image_to_tiles(pix, ntx, nty, s).contiguous()
+    args = (a16, bins.tile_offsets, pix_tiles, ntx, nty, s)
+    launches = timp.entry_counts.kernel_launches
+    k1 = timp.entry_counts(*args)
+    k2 = timp.entry_counts(*args)
+    torch.cuda.synchronize()
+    assert timp.entry_counts.kernel_launches == launches + 2
+    assert torch.equal(k1, k2)
+    p = timp.entry_counts_plain(*args)
+    total = int(bins.total_entries)
+    assert float(p.sum()) > 0
+    assert torch.equal(k1, p)
+    assert not k1[total:].any()
+
+
 def test_train_step_on_cuda_matches_cpu(cuda):
     """One training step on the card against the same step on the CPU:
     the metrics and the gradients' first moments agree."""

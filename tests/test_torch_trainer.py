@@ -1,15 +1,19 @@
-"""PyTorch port vs the JAX reference: the densify-free Trainer, the
-``train`` command, COLMAP/image loading and checkpoints across packages.
+"""PyTorch port vs the JAX reference: the Trainer with and without
+densification, the ``train`` and ``export`` commands, COLMAP/image loading
+and checkpoints across packages.
 
-The Trainer runs 3 steps beside the JAX Trainer (densify off, same seed,
-same synthetic views): the same view sequence, the same metric keys, and
-the loss within rtol 1e-3.  The CLI trains on a tiny on-disk COLMAP
+The Trainer runs beside the JAX Trainer (same seed, same synthetic views):
+3 steps densify-off, with the same view sequence, metric keys and the loss
+within rtol 1e-3; 6 steps densify-on with three events, one injected
+noise, the same point counts, alive mask, capacity and schedule, and the
+parameters within atol 1e-4.  The CLI trains on a tiny on-disk COLMAP
 dataset from scripts/make_synthetic_colmap.py; its checkpoint loads in the
 JAX package, and a JAX checkpoint renders through the port's CLI.
 """
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -92,18 +96,76 @@ def test_trainer_matches_jax_trainer():
                                atol=3e-4)
 
 
+def _densify_cfg(cfg, **kw):
+    return dataclasses.replace(cfg, densify=dataclasses.replace(
+        cfg.densify,
+        schedule=dataclasses.replace(cfg.densify.schedule, enabled=True,
+                                     warmup_iterations=2, interval=2,
+                                     stop_iterations=6),
+        metric_views=2, metric_downscale=2, metric_threshold=0.3,
+        clone_threshold_count=3, split_scale_threshold=0.12,
+        prune_opacity=0.45, max_new_points_per_step=24, **kw))
+
+
+def test_trainer_with_densify_matches_jax_trainer(monkeypatch):
+    """Densify on: 6 steps with events at 2, 4 and 6 (capacity growth at
+    the first), the same seed, the same metric views and one injected
+    noise in both packages."""
+    from webdgs_tpu.ops import densify as jden
+    from webdgs_tpu_torch.ops import densify as tden
+    w, h = 64, 48
+    params = numpy_scene(60, seed=63, spread=1.2)
+    js, ts = both_scenes(params)
+    cams_j, cams_t, images = _views(3, w, h, seed=64)
+    rng = np.random.default_rng(65)
+    u = rng.uniform(-1, 1, (8192, 3)).astype(np.float32)
+    d = rng.normal(size=(8192, 3)).astype(np.float32)
+    monkeypatch.setattr(jden, "densify_rng", lambda key, n: (
+        jnp.asarray(u[:n]), jnp.asarray(d[:n])))
+    monkeypatch.setattr(tden, "densify_rng", lambda gen, n: (
+        torch.tensor(u[:n]), torch.tensor(d[:n])))
+    tj = JTrainer(js, cams_j, images, _densify_cfg(JTrainerConfig(seed=6)),
+                  jax_settings(), initial_capacity=64)
+    tt = Trainer(ts, cams_t, images,
+                 _densify_cfg(tconfig.TrainerConfig(seed=6)),
+                 torch_settings(), initial_capacity=64)
+    assert tt.scene.capacity == tj.scene.capacity == 64
+    points = []
+    for _ in range(6):
+        mj, mt = tj.step(), tt.step()
+        np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]),
+                                   rtol=1e-3)
+        assert tt.num_points == tj.num_points
+        assert tt.scene.capacity == tj.scene.capacity
+        points.append(tt.num_points)
+    assert len(set(points)) >= 3, points  # the events changed the scene
+    assert tt.scene.capacity > 64  # grown at the first event
+    assert tt.last_densify_iteration == tj.last_densify_iteration == 6
+    assert tt.next_densify_iteration() == tj.next_densify_iteration()
+    assert tt._entry_cap() == tj._entry_cap()
+    assert tt.rng.getstate() == tj.rng.getstate()  # same view draws
+    np.testing.assert_array_equal(np_(tt.scene.alive),
+                                  np.asarray(tj.scene.alive))
+    for k, v in tj.scene.params().items():
+        np.testing.assert_allclose(np_(tt.scene.params()[k]), np.asarray(v),
+                                   atol=1e-4, err_msg=k)
+
+
 def test_trainer_refuses_densify_and_mesh():
+    """Only the mesh is refused; densification is on by default."""
     params = numpy_scene(10, seed=1)
     _, ts = both_scenes(params)
     _, cams, images = _views(1, 16, 16, seed=2)
-    with pytest.raises(NotImplementedError, match="densif"):
-        Trainer(ts, cams, images, tconfig.TrainerConfig())
+    assert Trainer(ts, cams, images, tconfig.TrainerConfig()) \
+        .config.densify.schedule.enabled
     cfg = _no_densify(tconfig.TrainerConfig())
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(ts, cams, images, cfg, mesh=object())
     tr = Trainer(ts, cams, images, cfg)
-    with pytest.raises(NotImplementedError):
-        tr.set_config({"densify": {"schedule": {"enabled": True}}})
+    assert tr.next_densify_iteration() is None
+    tr.set_config({"densify": {"schedule": {"enabled": True}}})
+    assert tr.config.densify.schedule.enabled
+    assert tr.next_densify_iteration() == 500
     tr.set_config({"adam": {"lr_pos": 0.0}})
     assert tr.config.adam.lr_pos == 0.0
     with pytest.raises(ValueError, match="unknown config keys"):
@@ -166,8 +228,6 @@ def test_cli_train_writes_checkpoint_jax_can_load(tmp_path):
             str(sparse / "cameras.bin"), "--images", str(data / "images"),
             "--iterations", "3", "--log-every", "1", "--device", "cpu",
             "--out", str(ck), "--export-ply", str(ply)]
-    with pytest.raises(SystemExit, match="densification is not ported"):
-        cli_main(args)
     proc = subprocess.run([sys.executable, "-m", "webdgs_tpu_torch", *args,
                            "--no-densify"], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
@@ -189,6 +249,35 @@ def test_cli_train_writes_checkpoint_jax_can_load(tmp_path):
                                             str(ck), "--iterations", "4",
                                             "--out", str(ck)])
     assert jck.load_checkpoint(str(ck))[2]["iteration"] == 4
+
+
+def test_cli_train_with_densify_and_export(tmp_path, capsys):
+    """``train`` without --no-densify: events at 2, 4 and 6 change the
+    logged point count; ``export`` turns its checkpoint into a PLY that
+    loads in both packages."""
+    from webdgs_tpu.io.ply import load_point_cloud as jload_point_cloud
+    from webdgs_tpu_torch.io.ply import load_point_cloud
+    data = _synthetic_dataset(tmp_path, views=3, w=64, h=48, points=300)
+    sparse = data / "sparse" / "0"
+    ck, ply = tmp_path / "d.npz", tmp_path / "d.ply"
+    cli_main(["train", "--points", str(sparse / "points3D.bin"),
+              "--cameras", str(sparse / "images.bin"),
+              str(sparse / "cameras.bin"), "--images", str(data / "images"),
+              "--iterations", "6", "--log-every", "1", "--device", "cpu",
+              "--densify-warmup", "2", "--densify-interval", "2",
+              "--densify-stop", "6", "--metric-views", "2",
+              "--clone-threshold", "1", "--max-new-points", "40",
+              "--out", str(ck)])
+    out = capsys.readouterr().out
+    points = [int(x) for x in re.findall(r"points=(\d+)", out)]
+    assert len(points) == 6 and len(set(points)) > 1, points
+    cli_main(["export", str(ck), "--out", str(ply), "--device", "cpu"])
+    assert f"exported {points[-1]} splats" in capsys.readouterr().out
+    scene, _, meta = tck.load_checkpoint(ck)
+    assert meta["iteration"] == 6
+    assert int(load_point_cloud(str(ply), "cpu").num_alive()) == \
+        int(scene.num_alive()) == points[-1]
+    assert int(jload_point_cloud(str(ply)).num_alive()) == points[-1]
 
 
 def test_jax_checkpoint_loads_and_renders_in_port(tmp_path):

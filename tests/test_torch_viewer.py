@@ -1,5 +1,5 @@
-"""The port's entry points on the CPU: Viewer, CLI, and the view-mode
-server; plus the guards (no CPU fallback when CUDA is asked for, and no
+"""The port's entry points on the CPU: Viewer, CLI, and the server, in
+view mode and with live training; plus the guards (no CPU fallback when CUDA is asked for, and no
 jax import anywhere in webdgs_tpu_torch)."""
 
 import json
@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -142,42 +143,80 @@ def test_server_frame_stats_control():
     assert seen == [4, 2, 1, 1]
 
 
-def test_server_http_endpoints():
-    _, ts = _scene(8, seed=71)
-    viewer = Viewer(ts, 32, 32, device=CPU)
-    viewer.control.position = np.array([0, 0, -5.0], np.float32)
-    vs = ViewerServer(viewer)
+def test_server_http_endpoints(tmp_path):
+    """A live-training server over HTTP: the page, frames, /stats with its
+    trainer block while steps run, /loss.jpg, control posts, and uploads
+    of a COLMAP dataset (PNGs, images.bin, cameras.bin) that set the
+    trainer's dataset."""
+    from webdgs_tpu_torch.io.colmap import load_cameras
+    from webdgs_tpu_torch.io.images import load_images
+    from webdgs_tpu_torch.io.ply import load_point_cloud
+    from webdgs_tpu_torch.train.config import load_trainer_config
+    from webdgs_tpu_torch.train.trainer import Trainer
+    from tests.test_torch_trainer import _synthetic_dataset
+
+    data = _synthetic_dataset(tmp_path, views=3, w=48, h=32, points=100)
+    sparse = data / "sparse" / "0"
+    cams = load_cameras([str(sparse / "images.bin"),
+                         str(sparse / "cameras.bin")])
+    imgs = load_images(str(data / "images"))
+    cfg = load_trainer_config({"densify": {"schedule": {
+        "warmup_iterations": 2, "interval": 2}, "clone_threshold_count": 1}})
+    trainer = Trainer(load_point_cloud(str(sparse / "points3D.bin"), CPU),
+                      cams, imgs, cfg)
+    trainer.dataset_cameras = cams
+    viewer = Viewer(trainer.scene, 32, 32, device=CPU)
+    viewer.frame_scene()
+    vs = ViewerServer(viewer, trainer=trainer)
     server = make_http_server(vs, "127.0.0.1", 0)
     url = f"http://127.0.0.1:{server.server_address[1]}"
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()
+
+    def get(path):
+        return urllib.request.urlopen(url + path, timeout=60).read()
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=body, method="POST")
+        return json.loads(urllib.request.urlopen(req, timeout=60).read())
+
     try:
-        assert b"webdgs_tpu_torch" in urllib.request.urlopen(
-            url + "/", timeout=60).read()
-        jpg = urllib.request.urlopen(url + "/frame.jpg", timeout=60).read()
-        assert jpg[:2] == b"\xff\xd8"
-        req = urllib.request.Request(url + "/control",
-                                     data=b'{"gaussian_scale_delta": 0.5}',
-                                     method="POST")
-        assert json.loads(urllib.request.urlopen(req, timeout=60).read()) \
-            == {}
-        stats = json.loads(urllib.request.urlopen(url + "/stats",
-                                                  timeout=60).read())
-        assert stats["points"] == 8 and viewer.gaussian_scaling == 1.5
-        for path, data in (("/loss.jpg", None), ("/upload?name=a.ply", b"x"),
-                           ("/upload_done", b"")):
-            req = urllib.request.Request(url + path, data=data,
-                                         method="GET" if data is None
-                                         else "POST")
-            with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(req, timeout=60)
-            assert e.value.code == 501
-            assert b"not yet ported" in e.value.read()
+        page = get("/")
+        assert b"webdgs_tpu_torch" in page and b"SLIDERS" in page
+        assert get("/frame.jpg")[:2] == b"\xff\xd8"
+        assert post("/control", b'{"gaussian_scale_delta": 0.5}') == {}
+        assert viewer.gaussian_scaling == 1.5
+        for _ in range(600):  # the train thread steps on its own
+            stats = json.loads(get("/stats"))
+            if stats["trainer"]["iteration"] >= 3:
+                break
+            time.sleep(0.1)
+        tr = stats["trainer"]
+        assert tr["iteration"] >= 3 and tr["training"] and not tr["error"]
+        assert tr["next_densify"] is not None and tr["n_cameras"] == 3
+        assert tr["config"]["densify.schedule.interval"] == 2
+        assert get("/loss.jpg")[:2] == b"\xff\xd8"
+        assert post("/control", b'{"toggle_train": 1}') == {}
+        assert not vs.training
+        post("/control", b'{"config": {"adam": {"lr_pos": 0.0}}}')
+        assert trainer.config.adam.lr_pos == 0.0
+        for png in sorted((data / "images").iterdir()):
+            r = post(f"/upload?name={png.name}", png.read_bytes())
+            assert r["staged"] == "image"
+        for name in ("images.bin", "cameras.bin"):
+            r = post(f"/upload?name={name}", (sparse / name).read_bytes())
+            assert r["staged"].startswith("camera") and r["count"] >= 1
+        assert post("/upload_done", b"") == {"dataset": "dataset set: 3 views"}
+        with pytest.raises(urllib.error.HTTPError) as e:
+            post("/upload?name=a.ply", b"not a ply")
+        assert e.value.code == 400
     finally:
         server.shutdown()
         server.server_close()
+        vs.shutdown()
         t.join(timeout=10)
-    assert not t.is_alive()
+    assert not t.is_alive() and not vs._train_thread.is_alive()
+    assert trainer.iteration >= 3 and trainer.last_densify_iteration
 
 
 def test_port_imports_no_jax():
@@ -192,7 +231,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'webdgs_tpu' or m.startswith('webdgs_tpu.')]\n"
         "need = {'webdgs_tpu_torch.ops.' + m for m in ('loss', 'tile_loss',"
-        " 'segsum', 'adam')} | {'webdgs_tpu_torch.train.' + m for m in "
+        " 'segsum', 'adam', 'importance', 'densify')} | {'webdgs_tpu_torch.train.' + m for m in "
         "('config', 'step', 'trainer')} | {'webdgs_tpu_torch.io.' + m for m"
         " in ('checkpoint', 'colmap', 'images')}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
@@ -218,5 +257,5 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert [p.name for p in _build.sources()] == [
-        "expand.cu", "rasterize_bwd.cu", "rasterize_fwd.cu", "segsum.cu",
-        "tile_loss.cu"]
+        "expand.cu", "importance.cu", "rasterize_bwd.cu", "rasterize_fwd.cu",
+        "segsum.cu", "tile_loss.cu"]

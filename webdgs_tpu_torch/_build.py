@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -52,6 +53,10 @@ SIGNATURES = {
                          _F, _F, _F, _F, _P, _P, _P),
     # rows, n_rows, row_stride, slots, valid, starts, n, out, stream
     "webdgs_segsum": (_P, _I, _L, _P, _P, _P, _I, _P, _P),
+    # attrs16, e_len, tile_offsets, pix, n_tiles, ntx, tile_w, tile_h,
+    # chunk, alpha_min, alpha_max, out, stream
+    "webdgs_importance": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
+                          _P),
 }
 
 
@@ -105,9 +110,19 @@ def build() -> tuple[Path, str | None]:
     return out, proc.stdout + proc.stderr
 
 
-@functools.cache
+_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call.  Thread-safe: the
+    live-training server launches kernels from its frame and training
+    threads, and only one of them may build."""
+    with _LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():

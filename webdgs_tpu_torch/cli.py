@@ -1,17 +1,18 @@
-"""Command-line interface of the port (counterpart of webdgs_tpu/cli.py:
-``train`` without densification, ``render``, ``view`` and the view-mode
-``serve``):
+"""Command-line interface of the port (counterpart of webdgs_tpu/cli.py):
 
   python -m webdgs_tpu_torch train --points points3D.bin \
-      --cameras images.bin cameras.bin --images images/ --no-densify \
-      --out ckpt.npz [--export-ply out.ply] [--device cuda]
+      --cameras images.bin cameras.bin --images images/ \
+      --out ckpt.npz [--export-ply out.ply] [--no-densify] [--device cuda]
   python -m webdgs_tpu_torch render scene.ply|ckpt.npz --out img.png
   python -m webdgs_tpu_torch view   scene.ply --out frames/ --orbit 24
-  python -m webdgs_tpu_torch serve  scene.ply --port 8000
+  python -m webdgs_tpu_torch export ckpt.npz --out scene.ply
+  python -m webdgs_tpu_torch serve  scene.ply --port 8000      # view mode
+  python -m webdgs_tpu_torch serve --train --points ... --cameras ... \
+      --images ...                       # live training in the browser
 
 Every command runs on ``--device`` (default ``cuda``) and raises when that
-device is unavailable.  Densification, ``--shard dp|gs``, ``serve
---train``, ``export`` and the benchmark are later slices of the port.
+device is unavailable.  ``--shard dp|gs`` and the benchmark are later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -20,13 +21,15 @@ import argparse
 import sys
 
 
-def _add_train_args(t):
-    """Dataset and training flags (those of webdgs_tpu/cli.py)."""
-    t.add_argument("--points", required=True,
+def _add_train_args(t, required: bool):
+    """Dataset and training flags (those of webdgs_tpu/cli.py), shared by
+    ``train`` and ``serve --train``."""
+    t.add_argument("--points", required=required,
                    help="initial PLY or COLMAP points3D.bin")
-    t.add_argument("--cameras", nargs="+", required=True,
+    t.add_argument("--cameras", nargs="+", required=required,
                    help="images.bin + cameras.bin, or a cameras JSON")
-    t.add_argument("--images", required=True, help="image dir or files")
+    t.add_argument("--images", required=required,
+                   help="image dir or files")
     t.add_argument("--iterations", type=int, default=10_000)
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--config", default=None,
@@ -54,9 +57,9 @@ def _add_train_args(t):
                    help="enable exponential position-lr decay to this value")
     t.add_argument("--bias-correction", action="store_true",
                    help="enable Adam bias correction (reference omits it)")
-    # densify: parsed for flag compatibility; only --no-densify runs
+    # densify
     t.add_argument("--no-densify", action="store_true",
-                   help="required: densification is not ported yet")
+                   help="train without densification")
     t.add_argument("--densify-warmup", type=int, default=500)
     t.add_argument("--densify-interval", type=int, default=100)
     t.add_argument("--densify-stop", type=int, default=15_000)
@@ -116,10 +119,6 @@ def _build_trainer(args):
                                                load_trainer_config)
     from webdgs_tpu_torch.train.trainer import Trainer
 
-    if not args.no_densify:
-        raise SystemExit(
-            "densification is not ported to webdgs_tpu_torch yet (it is "
-            "the next slice of the port): pass --no-densify")
     device = resolve_device(args.device)
     scene = load_point_cloud(args.points, device)
     cameras = load_cameras(args.cameras)
@@ -153,7 +152,7 @@ def _build_trainer(args):
             lr_pos_decay_steps=args.iterations),
         densify=DensifyPruneConfig(
             schedule=DensifySchedule(
-                enabled=False,
+                enabled=not args.no_densify,
                 warmup_iterations=args.densify_warmup,
                 interval=args.densify_interval,
                 stop_iterations=args.densify_stop),
@@ -211,12 +210,13 @@ def cmd_train(args):
         print(f"report -> {args.report}")
 
 
-def _viewer(args):
+def _viewer(args, scene=None):
     import numpy as np
     from webdgs_tpu_torch.render.viewer import Viewer
 
-    viewer = Viewer(_load_scene(args), args.width, args.height,
-                    _settings(args), device=args.device)
+    viewer = Viewer(_load_scene(args) if scene is None else scene,
+                    args.width, args.height, _settings(args),
+                    device=args.device)
     if args.position:
         viewer.control.position = np.asarray(args.position, np.float32)
     else:
@@ -247,10 +247,28 @@ def cmd_view(args):
         print(f"encoded {out}")
 
 
+def cmd_export(args):
+    from webdgs_tpu_torch.io.ply import save_ply
+
+    n = save_ply(_load_scene(args), args.out)
+    print(f"exported {n} splats -> {args.out}")
+
+
 def cmd_serve(args):
     from webdgs_tpu_torch.render.server import ViewerServer
 
-    ViewerServer(_viewer(args)).serve(port=args.port, host=args.host)
+    trainer, holdout, scene = None, None, None
+    if args.train:
+        if not (args.points and args.cameras and args.images):
+            raise SystemExit("serve --train requires --points, --cameras "
+                             "and --images")
+        trainer, holdout = _build_trainer(args)
+        scene = trainer.scene
+    elif not args.scene:
+        raise SystemExit("serve needs a scene argument (view mode) or "
+                         "--train with dataset flags")
+    ViewerServer(_viewer(args, scene), trainer=trainer,
+                 holdout=holdout).serve(port=args.port, host=args.host)
 
 
 def build_parser():
@@ -260,9 +278,8 @@ def build_parser():
         "CUDA port")
     sub = p.add_subparsers(dest="command", required=True)
 
-    t = sub.add_parser("train", help="train a scene from COLMAP data "
-                       "(--no-densify)")
-    _add_train_args(t)
+    t = sub.add_parser("train", help="train a scene from COLMAP data")
+    _add_train_args(t, required=True)
     t.add_argument("--log-every", type=int, default=100)
     t.add_argument("--out", default="checkpoint.npz")
     t.add_argument("--export-ply", default=None)
@@ -293,12 +310,25 @@ def build_parser():
     _add_common_render_args(v)
     v.set_defaults(fn=cmd_view)
 
+    e = sub.add_parser("export", help="export a checkpoint or scene to PLY")
+    e.add_argument("scene")
+    e.add_argument("--out", required=True)
+    e.add_argument("--device", default="cuda",
+                   help="torch device the scene is loaded on (default cuda)")
+    e.set_defaults(fn=cmd_export)
+
     sv = sub.add_parser("serve", help="interactive browser viewer (JPEG "
-                        "stream + fly controls), view mode")
-    sv.add_argument("scene", help="PLY scene or checkpoint to view")
+                        "stream + fly controls); --train runs live training "
+                        "while you watch")
+    sv.add_argument("scene", nargs="?", default=None,
+                    help="PLY scene or checkpoint to view (omit with "
+                    "--train)")
     sv.add_argument("--port", type=int, default=8000)
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--position", type=float, nargs=3, default=None)
+    sv.add_argument("--train", action="store_true",
+                    help="train while viewing (requires the dataset flags)")
+    _add_train_args(sv, required=False)
     _add_common_render_args(sv)
     sv.set_defaults(fn=cmd_serve)
     return p

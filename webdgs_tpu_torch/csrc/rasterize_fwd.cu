@@ -34,6 +34,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "splat_alpha.cuh"
+
 namespace {
 
 // attribute rows of the packed (16, E) entry array (ops/rasterize.py ROW_*)
@@ -76,19 +78,13 @@ __global__ void rasterize_fwd_kernel(const float* __restrict__ attrs,
     __syncthreads();
 
     for (int j = 0; j < n_in && !done; ++j) {
-      const float dx = px - stage[kRowCx * chunk + j];
-      const float dy = py - stage[kRowCy * chunk + j];
-      const float ca = stage[kRowCa * chunk + j];
-      const float cb = stage[kRowCb * chunk + j];
-      const float cc = stage[kRowCc * chunk + j];
-      const float u1 = ca * dx + cb * dy;
-      const float u2 = cb * dx + cc * dy;
-      const float power = dx * u1 + dy * u2;
-      const float gw = expf(-0.5f * power);
-      const float alpha = fminf(stage[kRowOp * chunk + j] * gw, alpha_max);
-      const bool keep = fabsf(dx) <= stage[kRowEx * chunk + j] &&
-                        fabsf(dy) <= stage[kRowEy * chunk + j] &&
-                        alpha >= alpha_min;
+      float alpha;
+      const bool keep = splat_alpha(
+          px - stage[kRowCx * chunk + j], py - stage[kRowCy * chunk + j],
+          stage[kRowCa * chunk + j], stage[kRowCb * chunk + j],
+          stage[kRowCc * chunk + j], stage[kRowOp * chunk + j],
+          stage[kRowEx * chunk + j], stage[kRowEy * chunk + j], alpha_min,
+          alpha_max, &alpha);
       if (!keep) continue;
       const float w = alpha * t_cur;
       r += w * stage[kRowR * chunk + j];

@@ -108,6 +108,28 @@ def _pixel_coords(ntx: int, n_tiles: int, settings: RenderSettings,
     return pxf[..., None], pyf[..., None]
 
 
+def _chunk_alpha(sub: torch.Tensor, pxf: torch.Tensor, pyf: torch.Tensor,
+                 settings: RenderSettings):
+    """Per-(pixel, entry) alpha of one chunk, op for op as the kernels
+    compute it (csrc/splat_alpha.cuh).  ``sub``: (t, 16, 1, K) entry rows;
+    ``pxf``/``pyf``: (t, P, 1) pixel centres.  Returns (alpha, gw, dx, dy,
+    keep), each (t, P, K): the clamped alpha and the Gaussian weight before
+    masking, and ``keep`` = inside the extent box and alpha >= alpha_min."""
+    def row(i):
+        return sub[:, i]  # (t, 1, K)
+
+    dx = pxf - row(ROW_CX)
+    dy = pyf - row(ROW_CY)
+    u1 = row(ROW_CA) * dx + row(ROW_CB) * dy
+    u2 = row(ROW_CB) * dx + row(ROW_CC) * dy
+    power = dx * u1 + dy * u2
+    gw = torch.exp(-0.5 * power)
+    alpha = torch.clamp(row(ROW_OP) * gw, max=settings.alpha_max)
+    keep = ((dx.abs() <= row(ROW_EX)) & (dy.abs() <= row(ROW_EY))
+            & (alpha >= settings.alpha_min))
+    return alpha, gw, dx, dy, keep
+
+
 def rasterize_tiles_plain(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
                           num_tiles_x: int, num_tiles_y: int,
                           settings: RenderSettings,
@@ -142,20 +164,8 @@ def rasterize_tiles_plain(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
         in_range = sl < (uo + cnt)[tl, None]
         sub = attrs16[:, torch.clamp(sl, max=e_len - 1)]  # (16, t, K)
         sub = sub.permute(1, 0, 2)[:, :, None, :]  # (t, 16, 1, K)
-
-        def row(i):
-            return sub[:, i]  # (t, 1, K)
-
-        dx = pxf[tl] - row(ROW_CX)  # (t, P, K)
-        dy = pyf[tl] - row(ROW_CY)
-        u1 = row(ROW_CA) * dx + row(ROW_CB) * dy
-        u2 = row(ROW_CB) * dx + row(ROW_CC) * dy
-        power = dx * u1 + dy * u2
-        alpha = torch.clamp(row(ROW_OP) * torch.exp(-0.5 * power),
-                            max=settings.alpha_max)
-        keep = ((dx.abs() <= row(ROW_EX)) & (dy.abs() <= row(ROW_EY))
-                & (alpha >= settings.alpha_min) & in_range[:, None, :])
-        alpha = torch.where(keep, alpha, 0.0)
+        alpha, _, _, _, keep = _chunk_alpha(sub, pxf[tl], pyf[tl], settings)
+        alpha = torch.where(keep & in_range[:, None, :], alpha, 0.0)
 
         lt = log_t_un[tl]
         alog = torch.log1p(-alpha)
@@ -306,17 +316,10 @@ def rasterize_tiles_backward_plain(attrs16: torch.Tensor,
         def row(i):
             return sub[:, i]  # (t, 1, K)
 
-        dx = pxf[tl] - row(ROW_CX)  # (t, P, K)
-        dy = pyf[tl] - row(ROW_CY)
-        u1 = row(ROW_CA) * dx + row(ROW_CB) * dy
-        u2 = row(ROW_CB) * dx + row(ROW_CC) * dy
-        power = dx * u1 + dy * u2
-        gw = torch.exp(-0.5 * power)
+        alpha, gw, dx, dy, keep = _chunk_alpha(sub, pxf[tl], pyf[tl],
+                                               settings)
         op = row(ROW_OP)
-        alpha = torch.clamp(op * gw, max=settings.alpha_max)
-        keep = ((dx.abs() <= row(ROW_EX)) & (dy.abs() <= row(ROW_EY))
-                & (alpha >= settings.alpha_min) & in_range[:, None, :])
-        alpha = torch.where(keep, alpha, 0.0)
+        alpha = torch.where(keep & in_range[:, None, :], alpha, 0.0)
 
         lt = log_t_un[tl]
         alog = torch.log1p(-alpha)

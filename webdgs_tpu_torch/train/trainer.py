@@ -1,16 +1,25 @@
-"""The training orchestrator, single-device and without densification
-(counterpart of webdgs_tpu/train/trainer.py:44-621).
+"""The training orchestrator, single-device (counterpart of
+webdgs_tpu/train/trainer.py:44-621).
 
 Owns the scene and the optimizer state, draws a random (camera, image)
 pair per step with ``random.Random(config.seed)`` -- the same view
-sequence as the JAX trainer -- runs ``train_step``, adapts the tile-entry
-capacity to the observed entry demand, meters iterations per second,
-snapshots the state and rolls back on a non-finite loss, evaluates PSNR /
-L1 / SSIM, and checkpoints.
+sequence as the JAX trainer -- runs ``train_step``, fires the densify /
+prune schedule, adapts the tile-entry capacity to the observed entry
+demand, meters iterations per second, snapshots the state and rolls back
+on a non-finite loss, evaluates PSNR / L1 / SSIM, and checkpoints.
 
-Densification (``ops/densify.py``, the importance kernel) and the
-multi-device mesh are a later slice of the port: a config with
-``densify.schedule.enabled`` or a ``mesh`` raises ``NotImplementedError``.
+A densify event renders ``metric_views`` views drawn with the same
+``random.Random`` at the metric resolution (the importance kernel), runs
+``densify_prune`` with noise from a ``torch.Generator`` seeded from
+``config.seed``, and swaps the state in; capacity grows geometrically when
+the headroom runs out.  An event reads its point counts and decisions back
+in one transfer, but it waits on the device more often than that: each
+metric view makes seven synchronizing calls (the bounds checks of the
+rasterize, importance and segment-sum wrappers read offsets back four
+times, and the metric camera, the projection and the background composite
+upload host constants with blocking copies), and the view indices are
+uploaded once.  The multi-device mesh is a later slice of the port: ``mesh=``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,23 +30,19 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
                                      quantize_budget)
-from webdgs_tpu_torch.core.camera import CameraData, make_camera
+from webdgs_tpu_torch.core.camera import Camera, CameraData, make_camera
 from webdgs_tpu_torch.core.scene import GaussianScene
 from webdgs_tpu_torch.ops.adam import AdamState, init_adam_state
+from webdgs_tpu_torch.ops.densify import densify_prune
+from webdgs_tpu_torch.ops.importance import multiview_importance_counts
 from webdgs_tpu_torch.ops.loss import loss_metrics, pixel_loss_gradient, ssim
 from webdgs_tpu_torch.render.renderer import render
 from webdgs_tpu_torch.train.config import TrainerConfig, _merge_dataclass
 from webdgs_tpu_torch.train.step import train_step
-
-_DENSIFY_NOT_PORTED = (
-    "densification (ops/densify.py, the importance kernel and the "
-    "trainer's densify phase) is not ported yet: it is the next slice of "
-    "webdgs_tpu_torch; train with densify.schedule.enabled=False "
-    "(--no-densify)")
-
 
 def _round_capacity(n: int, granule: int = 4096) -> int:
     return max(-(-n // granule) * granule, granule)
@@ -63,14 +68,14 @@ def _group_views(cameras: list[CameraData], images: list[dict],
 class Trainer:
     def __init__(self, scene: GaussianScene, cameras: list[CameraData],
                  images: list[dict], config: TrainerConfig = TrainerConfig(),
-                 settings: RenderSettings = DEFAULT_SETTINGS, mesh=None):
-        """Trains on ``scene.device``."""
+                 settings: RenderSettings = DEFAULT_SETTINGS,
+                 initial_capacity: int | None = None, mesh=None):
+        """Trains on ``scene.device``; ``initial_capacity`` sets the
+        scene's padded capacity (default: the alive count rounded up)."""
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device training (mesh=) is not ported yet; "
                 "webdgs_tpu_torch trains on one device")
-        if config.densify.schedule.enabled:
-            raise NotImplementedError(_DENSIFY_NOT_PORTED)
         if len(cameras) != len(images):
             raise ValueError(
                 f"cameras ({len(cameras)}) and images ({len(images)}) must "
@@ -85,11 +90,15 @@ class Trainer:
             warnings.warn(f"loss weights sum to {lam:.3f}, expected ~1.0",
                           stacklevel=2)
         self.rng = random.Random(config.seed)
+        # the densify noise; replaces the reference's jax.random key
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.seed)
 
         self.groups = _group_views(cameras, images, self.device)
 
         self.num_points = int(scene.num_alive())
-        self.scene = scene.pad_to(_round_capacity(scene.capacity))
+        cap = initial_capacity or _round_capacity(scene.capacity)
+        self.scene = scene.pad_to(cap)
         self.opt_state = init_adam_state(self.scene.params())
 
         self.iteration = 0
@@ -98,16 +107,16 @@ class Trainer:
         self.step_ms = 0.0
         self.iters_per_sec = 0.0
         self._rate_mark: tuple[int, float] | None = None
+        self.last_densify_iteration: int | None = None
+        # the last event's point counts and decisions, swapped in or not
+        self.last_densify_event: dict | None = None
         self.last_metrics: dict = {}
 
     def set_config(self, updates) -> None:
         """Apply a deep-partial config update (a dict such as
         ``{"adam": {"lr_pos": 0.0}}``, or a full TrainerConfig)."""
-        new = (updates if isinstance(updates, TrainerConfig)
-               else _merge_dataclass(self.config, updates))
-        if new.densify.schedule.enabled:
-            raise NotImplementedError(_DENSIFY_NOT_PORTED)
-        self.config = new
+        self.config = (updates if isinstance(updates, TrainerConfig)
+                       else _merge_dataclass(self.config, updates))
 
     def set_settings(self, updates) -> None:
         """Apply a partial RenderSettings update (or a full one)."""
@@ -162,6 +171,8 @@ class Trainer:
             entry_capacity=self._entry_cap())
         self.iteration += 1
         self._maybe_adapt_entry_cap(metrics)
+        if self.config.densify.schedule.should_densify(self.iteration):
+            self._run_densify(w, h)
         self._finish_step(t0, metrics)
         return metrics
 
@@ -183,14 +194,118 @@ class Trainer:
         self.last_metrics = metrics
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _metric_camera(cam: Camera, mw: int, mh: int) -> Camera:
+        """The camera re-derived at the metric viewport: fovY kept, focal
+        from fovY and the metric height, so only the viewport-dependent
+        projection entries p00 = 2f/w and p11 = -2f/h change (the same
+        values as ``make_camera(data, mw, mh)``)."""
+        f_m = cam.focal[1] * (mh / cam.viewport[1])  # = 0.5*mh/tan(fovY/2)
+        proj = cam.proj.clone()
+        proj[0, 0] = 2.0 * f_m / mw
+        proj[1, 1] = -2.0 * f_m / mh
+        return Camera(
+            view=cam.view, proj=proj, cam_pos=cam.cam_pos,
+            focal=torch.stack([f_m, f_m]),
+            viewport=torch.tensor([mw, mh], dtype=torch.float32,
+                                  device=cam.viewport.device))
+
+    def _grow_capacity(self) -> None:
+        """Grow the scene and optimizer capacity when the densify headroom
+        is short (the analogue of the reference's buffer swap)."""
+        cfg = self.config.densify
+        needed = self.num_points + cfg.max_new_points_per_step
+        budget = cfg.max_buffer_bytes // 96  # sh-buffer stride analogue
+        if needed > self.scene.capacity and self.scene.capacity < budget:
+            new_cap = _round_capacity(min(int(needed * 1.5), budget))
+            if new_cap > self.scene.capacity:
+                self.scene = self.scene.pad_to(new_cap)
+                self.opt_state = self.opt_state.pad_to(new_cap)
+                self._on_state_resize()
+
+    def _on_state_resize(self) -> None:
+        """Hook after a capacity change (a sharded trainer would re-place
+        its state here)."""
+
+    @torch.no_grad()
+    def _run_densify(self, w: int, h: int) -> None:
+        cfg = self.config.densify
+        g = self.groups[(w, h)]
+        downscale = max(1, int(cfg.metric_downscale))
+        mw, mh = max(1, w // downscale), max(1, h // downscale)
+
+        self._grow_capacity()
+
+        n_views = min(max(1, cfg.metric_views), g["count"])
+        view_idx = self.rng.sample(range(g["count"]), k=n_views)
+        cams = [self._metric_camera(g["cams"][i], mw, mh) for i in view_idx]
+        targets = g["imgs"][view_idx].permute(0, 3, 1, 2)
+        # bilinear with antialiasing: jax.image.resize(..., "linear")
+        t_small = F.interpolate(targets, size=(mh, mw), mode="bilinear",
+                                align_corners=False, antialias=True)
+        counts = multiview_importance_counts(
+            self.scene.params(), self.scene.alive, self.scene.sh_deg, cams,
+            t_small.permute(0, 2, 3, 1), mw, mh, cfg.metric_threshold,
+            self.settings)
+        result = densify_prune(self.scene, self.opt_state, counts, cfg,
+                               self.generator)
+
+        # the event's one read of its counts and decisions
+        out_total, in_alive, cloned, split, pruned = torch.stack([
+            result.out_total, result.in_alive, result.n_cloned,
+            result.n_split, result.n_pruned]).tolist()
+        self.last_densify_event = {
+            "iteration": self.iteration, "in": in_alive, "out": out_total,
+            "cloned": cloned, "split": split, "pruned": pruned}
+        if out_total == 0 or out_total == in_alive:
+            return  # the reference skips the swap
+        self.scene = result.scene
+        self.opt_state = result.opt_state
+        self.num_points = out_total
+        self.last_densify_iteration = self.iteration
+        self._grow_entry_cap_for_swap(out_total, in_alive)
+
+    def _grow_entry_cap_for_swap(self, out_total: int, in_alive: int) -> None:
+        """Entry demand scales about linearly with the alive points: grow
+        the entry-cap peak with a densify swap instead of waiting for the
+        next adaptation read."""
+        if not (out_total > in_alive > 0):
+            return
+        self._entry_cap_peak *= out_total / in_alive
+        chunk = self.settings.chunk
+        want = quantize_budget(self._entry_cap_peak * self.ENTRY_CAP_HEADROOM,
+                               chunk, chunk * 8)
+        if self._entry_cap_value is None or want > self._entry_cap_value:
+            self._entry_cap_value = want
+
+    def next_densify_iteration(self) -> int | None:
+        """The iteration of the next densify event, or None."""
+        s = self.config.densify.schedule
+        if not s.enabled:
+            return None
+        i = self.iteration
+        if i >= s.stop_iterations:
+            return None
+        if i < s.warmup_iterations:
+            return min(s.warmup_iterations, s.stop_iterations)
+        interval = max(1, s.interval)
+        k = -(-(i + 1 - s.warmup_iterations) // interval)
+        nxt = s.warmup_iterations + k * interval
+        return nxt if nxt <= s.stop_iterations else None
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def evaluate(self, max_views: int | None = None,
-                 views: tuple[list, list] | None = None) -> dict:
+                 views: tuple[list, list] | None = None,
+                 groups: dict | None = None) -> dict:
         """Mean PSNR / L1 / SSIM over the first ``max_views`` dataset views
         (all by default).  ``views``: optional (cameras, images) lists to
-        evaluate instead of the training set (e.g. a held-out split)."""
-        groups = (self.groups if views is None
-                  else _group_views(views[0], views[1], self.device))
+        evaluate instead of the training set (e.g. a held-out split);
+        ``groups``: a ``_group_views`` result of such a split, for callers
+        that evaluate it repeatedly (grouping uploads every image)."""
+        if groups is None:
+            groups = (self.groups if views is None
+                      else _group_views(views[0], views[1], self.device))
         per_view = []
         remaining = max_views
         for (w, h), g in groups.items():
