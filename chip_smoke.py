@@ -4,6 +4,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+With ``--before-segsum PATH`` it also builds an earlier segsum.cu (for
+example ``git archive 8c7f768 webdgs_tpu_torch/csrc/segsum.cu`` unpacked
+into a directory that .gitignore lists) and times it beside the
+segment-sum kernel on the same inputs, comparing their sums bit for bit.
+
 Phases (any failure raises, and the script exits non-zero with no result):
   1. device: CUDA must be available; prints the card's name and power limit;
   2. build: compiles the CUDA kernels of webdgs_tpu_torch/csrc from the
@@ -14,7 +19,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      importance kernel at the bench scene's 400x300 metric view (equal to
      its plain version on every slot), with both times, each kernel since
      the first slice run twice and required bit-identical, and the bound
-     (bytes or operations) this run's inputs need;
+     (bytes or operations) this run's inputs need; the segment sum also
+     beside the library call index_add_, and timed with the launch queue
+     filled first as well as back to back;
   4. the viewer slice: a Viewer renders 5 bench frames through the render
      kernels (their launch counters are reset just before and must grow),
      and a small frame rendered on the card matches the plain CPU render;
@@ -35,10 +42,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
      synthetic 1920x1080 views runs two densify events (every counter reset
      just before and the importance and segment-sum counters must grow;
      clone, split and prune each > 0; capacity growth; finite parameters;
-     the synchronizing calls of each event counted), the importance kernel
-     equals its plain version on every slot of one 960x540 metric view of
-     the post-event state, and a small event on the card matches the same
-     event on the CPU;
+     the synchronizing calls of each event counted, none of them from the
+     segment sum), the importance kernel equals its plain version on every
+     slot of one 960x540 metric view of the post-event state and the
+     one-row segment sum of its counts matches its plain version there,
+     and a small event on the card matches the same event on the CPU;
  10. ``train`` with densification and ``export`` on the synthetic dataset:
      exit 0, logged point counts that change, a PLY that loads;
  11. a live-training server over HTTP: /stats shows the iteration advancing,
@@ -146,6 +154,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` with the launch queue filled first: the
+    card sleeps while the host enqueues all ``iters`` runs, so a wrapper
+    whose host time exceeds its device time is not timed by the host."""
+    import torch
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_pair(kernel, plain, iters: int, plain_iters: int):
     """Kernel and plain times in turns (kernel, plain, kernel, plain); the
     mean of each version's two readings."""
@@ -216,7 +243,8 @@ def metric_view_inputs(scene, cam, target, mw: int, mh: int,
                        threshold: float, settings):
     """The importance kernel's inputs for one metric view, built as
     ``view_importance_counts`` builds them: (attrs16, tile_offsets,
-    pix_tiles, ntx, nty) and the view's valid entry count."""
+    pix_tiles, ntx, nty), the view's valid entry count and its binning
+    (whose payloads the one-row segment sum takes)."""
     import torch
     from webdgs_tpu_torch.ops import binning, importance, rasterize
     from webdgs_tpu_torch.ops.projection import project_gaussians
@@ -237,7 +265,7 @@ def metric_view_inputs(scene, cam, target, mw: int, mh: int,
         pix_tiles = rasterize.image_to_tiles(pix, ntx, nty,
                                              settings).contiguous()
     return ((m16, bins.tile_offsets, pix_tiles, ntx, nty, settings),
-            int(bins.total_entries))
+            int(bins.total_entries), bins)
 
 
 def importance_check(label: str, margs, n_valid: int, plain_iters: int
@@ -292,6 +320,151 @@ def importance_check(label: str, margs, n_valid: int, plain_iters: int
           f"{res['nonzero']} non-zero, sum {p_sum:.0f}); bit-identical "
           f"repeat; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
           f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return res
+
+
+def build_before_segsum(path: str):
+    """An earlier ``segsum.cu`` -- the one-pass gather kernel of commit
+    8c7f768, C interface ``webdgs_segsum(rows, n_rows, row_stride, slots,
+    valid, starts, n, out, stream)`` with slots the inverse sort
+    permutation -- built with the port's nvcc flags into the build
+    directory.  Returns a function of (rows_cm, counts, inverse
+    permutation, valid) that runs it as that commit's wrapper did."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / "segsum_before.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    path], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    lib.webdgs_segsum.argtypes = (p_, i_, ctypes.c_longlong, p_, p_, p_, i_,
+                                  p_, p_)
+    lib.webdgs_segsum.restype = i_
+
+    def run(rows_cm, counts, inv, valid):
+        c, e_len = rows_cm.shape
+        n = counts.shape[0]
+        starts = torch.cat([
+            torch.zeros((1,), dtype=torch.int64, device=rows_cm.device),
+            torch.cumsum(counts.to(torch.int64), 0)]).to(torch.int32)
+        out = torch.empty((n, c), dtype=torch.float32, device=rows_cm.device)
+        err = lib.webdgs_segsum(
+            rows_cm.data_ptr(), c, e_len, inv.data_ptr(), valid.data_ptr(),
+            starts.data_ptr(), n, out.data_ptr(),
+            torch.cuda.current_stream(rows_cm.device).cuda_stream)
+        check(err == 0, f"the earlier segment-sum kernel: CUDA error {err}")
+        return out
+    return run
+
+
+# set by --before-segsum: the earlier kernel segsum_check compares with
+BEFORE_SEGSUM = None
+
+
+def device_us_by_kernel(fn, iters: int = 20) -> dict:
+    """Mean device microseconds per call of each kernel ``fn`` launches,
+    under torch.profiler."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"\(anonymous namespace\)::|<.*|\(.*", "",
+                          e.name)[:40]
+            us[name] = us.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / iters
+    return {k: round(v, 2) for k, v in us.items()}
+
+
+def segsum_check(label: str, rows_cm, counts, src, valid, exp_gauss,
+                 plain_iters: int) -> dict:
+    """The segment-sum kernel against ``segment_sum_rows_plain`` on one
+    shape's inputs (rows in sorted-slot order, the binning's counts,
+    entry_source, valid flags and expansion-order Gaussian ids): scaled
+    error within SEGSUM_TOL and two runs bit-identical.  Times the kernel,
+    its plain version and the library yardstick ``index_add_`` on the rows
+    pre-gathered into expansion order (atomics; the port never calls it),
+    back to back and with the launch queue filled first, and the kernel's
+    device time by launch.  With BEFORE_SEGSUM, the earlier kernel too, on
+    the same inputs, in turns with this one."""
+    import torch
+    from webdgs_tpu_torch.ops import segsum
+    c, n = rows_cm.shape[0], counts.shape[0]
+    total = int(counts.sum())
+    sk = segsum.segment_sum_rows(rows_cm, counts, src, valid)
+    sk2 = segsum.segment_sum_rows(rows_cm, counts, src, valid)
+    sp = segsum.segment_sum_rows_plain(rows_cm, counts, src, valid)
+    torch.cuda.synchronize()
+    check(torch.equal(sk, sk2), f"segment sum ({label}) is not bit-identical")
+    err = max_rel(sk, sp)
+    check(err <= SEGSUM_TOL, f"segment sum ({label}) scaled err {err}")
+    inv = segsum.inverse_permutation(src)
+    rows_exp = rows_cm[:, inv[:total].long()].T.contiguous()
+    ids_exp = exp_gauss[:total].long()
+    zeros_n = torch.zeros((n, c), dtype=torch.float32, device=rows_cm.device)
+
+    def kernel():
+        return segsum._segment_sum_rows_cuda(rows_cm, counts, src, valid)
+
+    def library():
+        return zeros_n.clone().index_add_(0, ids_exp, rows_exp)
+
+    lib_err = max_rel(library(), sp)
+    ms, plain_ms = time_pair(
+        kernel, lambda: segsum.segment_sum_rows_plain(rows_cm, counts, src,
+                                                      valid), 50, plain_iters)
+    lib_ms = cuda_ms(library, 50)
+    dev_ms, lib_dev_ms = queued_ms(kernel, 50), queued_ms(library, 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kernel()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    # rows (C per entry), entry_source, valid flags and the N + 1 segment
+    # starts in, (N, C) out: each read or written once
+    bound = bound_ms(4 * (c * total + total + n + 1 + c * n) + total,
+                     c * total)
+    res = {"err": err, "lib_err": lib_err, "ms": ms, "plain_ms": plain_ms,
+           "lib_ms": lib_ms, "device_ms": dev_ms, "lib_device_ms": lib_dev_ms,
+           "host_us": host_us, "bound": bound, "entries": total,
+           "slots": rows_cm.shape[1], "gaussians": n, "channels": c,
+           "max_count": int(counts.max()),
+           "device_us_by_kernel": device_us_by_kernel(kernel)}
+    print(f"[kernels] segment_sum_rows {label}: C = {c}, {total} entries of "
+          f"{res['slots']} slots, {n} Gaussians (at most {res['max_count']} "
+          f"entries each); scaled max err {err:.3e} (<= {SEGSUM_TOL}), "
+          f"index_add_ err {lib_err:.2e}; bit-identical repeat; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} "
+          f"ms; queued: kernel {dev_ms:.4f} ms, index_add_ "
+          f"{lib_dev_ms:.4f} ms; wrapper host {host_us:.1f} us/call; device "
+          f"us by launch {res['device_us_by_kernel']}; bound "
+          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    if BEFORE_SEGSUM is not None:
+        def before():
+            return BEFORE_SEGSUM(rows_cm, counts, inv, valid)
+        same = torch.equal(before(), sk)
+        # in turns: new, before, new, before
+        b2b = [cuda_ms(f, 50) for f in (kernel, before, kernel, before)]
+        queued = [queued_ms(f, 50) for f in (kernel, before, kernel, before)]
+        res["before"] = {"bit_identical": same, "ms": b2b[1::2],
+                         "device_ms": queued[1::2], "new_ms": b2b[0::2],
+                         "new_device_ms": queued[0::2],
+                         "device_us_by_kernel": device_us_by_kernel(before)}
+        print(f"[kernels] segment_sum_rows {label}, the earlier kernel on the "
+              f"same inputs: sums bit-identical to this one's {same}; back to "
+              f"back {b2b[1]:.4f} / {b2b[3]:.4f} ms (this one {b2b[0]:.4f} / "
+              f"{b2b[2]:.4f}); queued {queued[1]:.4f} / {queued[3]:.4f} ms "
+              f"(this one {queued[0]:.4f} / {queued[2]:.4f}); device us by "
+              f"launch {res['before']['device_us_by_kernel']}", flush=True)
     return res
 
 
@@ -405,6 +578,10 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     for i, ev in enumerate(events):
         # the event reads its counts back once, so at least that one shows
         check(sum(ev["syncs"].values()) > 0, "no synchronizing call seen")
+        # the segment sum reads nothing back on this path
+        seg_syncs = {k: v for k, v in ev["syncs"].items()
+                     if "ops/segsum.py" in k}
+        check(not seg_syncs, f"the segment sum synchronized: {seg_syncs}")
         print(f"[densify] {n} sh3 {W}x{H}, event {i + 1} at iteration "
               f"{ev['iteration']}: {ev['ms']:.2f} ms host (synchronized); "
               f"points {ev['points'][0]} -> {ev['points'][1]}; capacity "
@@ -420,6 +597,7 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     # (synchronized host time, then its device time by kernel under
     # torch.profiler) and densify_prune alone, on the post-event state
     import torch.nn.functional as F
+    from webdgs_tpu_torch.ops import importance
     from webdgs_tpu_torch.ops.densify import densify_prune
     from webdgs_tpu_torch.ops.importance import view_importance_counts
     g = trainer.groups[(W, H)]
@@ -472,13 +650,20 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
 
     # the importance kernel against its plain version at the load an event
     # gives it: this metric view of the post-event state
-    margs, n_valid = metric_view_inputs(sc, mcam, tgt, mw, mh,
-                                        cfg.densify.metric_threshold, s1m)
+    margs, n_valid, mbins = metric_view_inputs(
+        sc, mcam, tgt, mw, mh, cfg.densify.metric_threshold, s1m)
     imp = importance_check(f"{mw}x{mh} densify view", margs, n_valid, 1)
-    del trainer, sc, margs
+    # the one-row segment sum an event launches once per view, on this
+    # view's importance counts
+    with torch.no_grad():
+        view_counts = importance.entry_counts(*margs)[None, :]
+    seg = segsum_check(f"{mw}x{mh} densify view", view_counts,
+                       mbins.gauss_counts, mbins.entry_source,
+                       mbins.entry_valid, mbins.expansion_gauss, 1)
+    del trainer, sc, margs, mbins, view_counts
     torch.cuda.empty_cache()
     return {"launches": launches, "events": events, "peak_gb": peak_gb,
-            "importance": imp}
+            "importance": imp, "segsum": seg}
 
 
 def small_event_phase(dev, settings) -> None:
@@ -666,8 +851,15 @@ def live_server_phase(dev, data: str, sparse: str,
           f"uploads staged {staged}; /upload_done {done}", flush=True)
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--before-segsum", metavar="SEGSUM_CU",
+                    help="an earlier csrc/segsum.cu (commit 8c7f768's "
+                    "interface) to time and compare beside the segment-sum "
+                    "kernel at both of its shapes")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -691,6 +883,11 @@ def main() -> int:
     for line in (log or "").splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    if args.before_segsum:
+        global BEFORE_SEGSUM
+        BEFORE_SEGSUM = build_before_segsum(args.before_segsum)
+        print(f"[build] the earlier segment-sum kernel {args.before_segsum}",
+              flush=True)
 
     import torch.nn.functional as F
     from webdgs_tpu_torch.config import RenderSettings, quantize_budget
@@ -790,7 +987,6 @@ def main() -> int:
         noise = np.random.default_rng(1).normal(0.0, 0.05, (h, w, 3))
         target_n = (own + torch.tensor(noise, dtype=torch.float32,
                                        device=dev)).contiguous()
-    total_t = int(tbins.total_entries)
 
     dk, sk = tile_loss.tile_loss_tiles(tout, target_n, w, h, ntx, nty, cfg,
                                        settings)
@@ -852,40 +1048,10 @@ def main() -> int:
           f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; bound "
           f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})", flush=True)
 
-    inv = segsum.inverse_permutation(tbins.entry_source)
-    counts_t = tbins.gauss_counts
-    valid_t = tbins.entry_valid
-    sg = segsum.segment_sum_rows(bk, counts_t, inv, valid_t)
-    sg2 = segsum.segment_sum_rows(bk, counts_t, inv, valid_t)
-    sgp = segsum.segment_sum_rows_plain(bk, counts_t, inv, valid_t)
-    torch.cuda.synchronize()
-    check(torch.equal(sg, sg2), "segment sum is not bit-identical")
-    seg_err = max_rel(sg, sgp)
-    check(seg_err <= SEGSUM_TOL, f"segment sum scaled err {seg_err}")
-    # library yardstick: index_add_ of the rows gathered into expansion
-    # order (atomics; the port never calls it)
-    rows_exp = bk[:, inv[:total_t].long()].T.contiguous()
-    ids_exp = tbins.expansion_gauss[:total_t].long()
-    zeros_n = torch.zeros((scene.capacity, 16), dtype=torch.float32,
-                          device=dev)
-    lib_err = max_rel(zeros_n.clone().index_add_(0, ids_exp, rows_exp), sgp)
-    seg_ms, seg_plain_ms = time_pair(
-        lambda: segsum._segment_sum_rows_cuda(bk, counts_t, inv, valid_t),
-        lambda: segsum.segment_sum_rows_plain(bk, counts_t, inv, valid_t),
-        50, 5)
-    seg_lib_ms = cuda_ms(
-        lambda: zeros_n.clone().index_add_(0, ids_exp, rows_exp), 50)
-    # rows (16 per entry), slots, valid flags and starts in, (N, 16) out
-    seg_bound = bound_ms(4 * (16 * total_t + total_t + scene.capacity + 1
-                              + 16 * scene.capacity) + total_t,
-                         16 * total_t)
-    print(f"[kernels] segment_sum_rows: scaled max err {seg_err:.3e} (<= "
-          f"{SEGSUM_TOL}), index_add_ err {lib_err:.2e}; bit-identical "
-          f"repeat; kernel {seg_ms:.4f} ms, plain {seg_plain_ms:.4f} ms, "
-          f"index_add_ {seg_lib_ms:.4f} ms; bound {seg_bound[0]:.4f} ms "
-          f"({seg_bound[1]}); {total_t} entries, capacity {cap}",
-          flush=True)
-    del dk, dk2, dp, bk, bk2, bp, sg, sg2, sgp, rows_exp, zeros_n
+    seg = segsum_check(f"{w}x{h} training step", bk, tbins.gauss_counts,
+                       tbins.entry_source, tbins.entry_valid,
+                       tbins.expansion_gauss, 5)
+    del dk, dk2, dp, bk, bk2, bp
     torch.cuda.empty_cache()
 
     # --- 3c. the importance kernel at the bench scene's metric view ---
@@ -901,8 +1067,8 @@ def main() -> int:
                             align_corners=False, antialias=True)
         tgt = tgt[0].permute(1, 2, 0).contiguous()
     mcam = default_camera(mw, mh, position=(0.0, 0.0, -8.0), device=dev)
-    margs, mtotal = metric_view_inputs(scene, mcam, tgt, mw, mh, 0.5,
-                                       settings)
+    margs, mtotal, _ = metric_view_inputs(scene, mcam, tgt, mw, mh, 0.5,
+                                          settings)
     imp_bench = importance_check(f"{mw}x{mh} bench view", margs, mtotal, 5)
     del margs
 
@@ -1149,6 +1315,7 @@ def main() -> int:
 
     dlaunch = densify_res["launches"]
     imp = densify_res["importance"]
+    dseg = densify_res["segsum"]
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, lib_ms,
               **extra):
@@ -1178,9 +1345,26 @@ def main() -> int:
               "webdgs_tpu_torch/csrc/rasterize_bwd.cu",
               "webdgs_tpu/ops/rasterize.py:347", bwd_err, bwd_ms,
               bwd_plain_ms, bwd_bound, None),
+        # at the training step's inputs (C = 16); the one-row launch at
+        # the densify view beside it
         entry("segment_sum_rows", "webdgs_tpu_torch/csrc/segsum.cu",
-              "webdgs_tpu/ops/segsum.py:56", seg_err, seg_ms, seg_plain_ms,
-              seg_bound, seg_lib_ms),
+              "webdgs_tpu/ops/segsum.py:56", seg["err"], seg["ms"],
+              seg["plain_ms"], seg["bound"], seg["lib_ms"],
+              device_ms=seg["device_ms"],
+              library_device_ms=seg["lib_device_ms"],
+              before=seg.get("before"),
+              # a step launches it once, beside the backward raster
+              launches_per_event=(dlaunch["segment_sum_rows"]
+                                  - dlaunch["rasterize_tiles_backward"])
+              // len(densify_res["events"]),
+              densify_view={
+                  "max_abs_err": dseg["err"], "ms": dseg["ms"],
+                  "plain_ms": dseg["plain_ms"],
+                  "bound_ms": dseg["bound"][0],
+                  "bound_by": dseg["bound"][1], "library_ms": dseg["lib_ms"],
+                  "device_ms": dseg["device_ms"],
+                  "library_device_ms": dseg["lib_device_ms"],
+                  "before": dseg.get("before")}),
         # at the densify view's inputs (the event's load); the bench
         # scene's 400x300 view beside it
         entry("entry_counts", "webdgs_tpu_torch/csrc/importance.cu",

@@ -154,6 +154,124 @@ def test_segment_reduce_entries_matches_jax():
     _assert_sums_close(got, ref.astype(np.float32))
 
 
+def _binned(n, e_cap, cols, seed, long_seg):
+    """Segment-sum inputs in the binning's layout: ragged counts (zeros
+    included; Gaussian n // 2 holds ``long_seg`` entries when non-zero),
+    rows in sorted-slot order with NaN garbage past the total, and an
+    entry_source whose first ``total`` slots hold the expansion indices
+    [0, total).  Also the expansion-order rows, ids and the inverse map."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 9, n).astype(np.int32)
+    counts[n // 2] = long_seg or counts[n // 2]
+    while counts.sum() > e_cap:
+        counts[rng.integers(0, n)] = 0
+    total = int(counts.sum())
+    perm = rng.permutation(e_cap).astype(np.int32)
+    perm = perm[np.argsort(perm >= total, kind="stable")]
+    rows = (rng.standard_normal((cols, e_cap)) * 8).astype(np.float32)
+    rows[:, total:] = np.nan
+    valid = np.arange(e_cap) < total
+    inv = np.argsort(perm).astype(np.int32)  # expansion index -> slot
+    rows_exp = np.zeros_like(rows)
+    rows_exp[:, :total] = rows[:, inv[:total]]
+    ids = np.repeat(np.arange(n, dtype=np.int32), counts)
+    ids = np.concatenate([ids, np.full(e_cap - total, ids[-1], np.int32)])
+    return counts, perm, rows, valid, rows_exp, ids
+
+
+@pytest.mark.parametrize("cols,long_seg", [(16, 0), (16, 320), (1, 0),
+                                           (1, 400)])
+def test_segment_sum_rows_sorted_slots_match_jax(cols, long_seg):
+    """The plain version on sorted-slot rows (C = 16 and the importance
+    counts' C = 1, ragged segments with zero counts, one long segment)
+    against JAX's kernel on the same rows in expansion order."""
+    counts, perm, rows, valid, rows_exp, ids = _binned(500, 4096, cols, 11,
+                                                       long_seg)
+    assert long_seg == 0 or counts.max() == long_seg
+    assert (counts == 0).any()
+    want = jseg.segment_sum_rows(jnp.asarray(rows_exp), jnp.asarray(ids),
+                                 jnp.asarray(counts))
+    got = tseg.segment_sum_rows(t_(rows), t_(counts), t_(perm), t_(valid))
+    assert got.shape == (500, cols) and bool(torch.isfinite(got).all())
+    _assert_sums_close(got, want)
+
+
+@pytest.mark.parametrize("cols", [16, 1])
+def test_segment_reduce_entries_long_segment_matches_jax(cols):
+    counts, perm, rows, valid, _, ids = _binned(300, 2048, cols, 12, 310)
+    rows_ec = rows.T.copy()  # (E, C), the rasterizer's cotangent layout
+    want = jras.segment_reduce_entries(
+        2048, jnp.asarray(np.nan_to_num(rows_ec)), jnp.asarray(valid),
+        jnp.asarray(perm), jnp.asarray(counts), jax_settings(),
+        jnp.asarray(ids))
+    got = tseg.segment_reduce_entries(t_(rows_ec), t_(valid), t_(perm),
+                                      t_(counts))
+    assert got.shape == (300, cols) and bool(torch.isfinite(got).all())
+    _assert_sums_close(got, want)
+
+
+def test_segment_sum_rows_flag_zero_in_prefix_adds_nothing():
+    counts, perm, rows, valid, rows_exp, ids = _binned(200, 1024, 16, 13, 0)
+    total = int(counts.sum())
+    valid[[0, 5, total - 1]] = False
+    rows_exp[:, perm[[0, 5, total - 1]]] = 0.0
+    ref = np.zeros((200, 16))
+    np.add.at(ref, ids[:total], rows_exp[:, :total].T.astype(np.float64))
+    got = tseg.segment_sum_rows(t_(rows), t_(counts), t_(perm), t_(valid))
+    _assert_sums_close(got, ref.astype(np.float32))
+
+
+@pytest.mark.parametrize("fault", ["past_total", "negative", "duplicate",
+                                   "total_exceeds_slots"])
+def test_segment_sum_rows_raises_on_bad_values(fault):
+    """What the kernel cannot take raises before any launch, on the CPU as
+    on the card."""
+    counts, perm, rows, valid, _, _ = _binned(100, 512, 16, 14, 0)
+    total = int(counts.sum())
+    if fault == "past_total":
+        perm[3] = total + 2
+    elif fault == "negative":
+        perm[3] = -1
+    elif fault == "duplicate":
+        perm[3] = perm[4]
+    else:
+        counts[0] += 512
+    with pytest.raises(ValueError):
+        tseg.segment_sum_rows(t_(rows), t_(counts), t_(perm), t_(valid))
+
+
+@pytest.mark.parametrize("fault", ["dtype", "length", "strides"])
+def test_segment_sum_rows_raises_on_bad_layout(fault):
+    counts, perm, rows, valid, _, _ = _binned(100, 512, 16, 15, 0)
+    rows_t, perm_t = t_(rows), t_(perm)
+    if fault == "dtype":
+        rows_t = rows_t.double()
+    elif fault == "length":
+        perm_t = perm_t[:-1]
+    else:
+        rows_t = t_(rows.T.copy()).T
+    with pytest.raises((TypeError, ValueError)):
+        tseg.segment_sum_rows(rows_t, t_(counts), perm_t, t_(valid))
+
+
+def test_segment_reduce_entries_skips_the_value_checks(monkeypatch):
+    """The training and densify paths read nothing back: their binning
+    inputs are in bounds by construction, so segment_reduce_entries never
+    runs the checks that read the device (segment_sum_rows does)."""
+    counts, perm, rows, valid, _, _ = _binned(150, 1024, 16, 16, 0)
+    want = tseg.segment_sum_rows(t_(rows), t_(counts), t_(perm), t_(valid))
+
+    def read_back(*args):
+        raise AssertionError("value check ran")
+
+    monkeypatch.setattr(tseg, "_check_values", read_back)
+    got = tseg.segment_reduce_entries(t_(rows).T, t_(valid), t_(perm),
+                                      t_(counts))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(AssertionError, match="value check ran"):
+        tseg.segment_sum_rows(t_(rows), t_(counts), t_(perm), t_(valid))
+
+
 def test_inverse_permutation():
     perm = torch.tensor(np.random.default_rng(4).permutation(97),
                         dtype=torch.int32)

@@ -164,22 +164,35 @@ def test_rasterize_backward_kernel_matches_plain(cuda, n, w, h, shift):
     assert not dk[11:].any()
 
 
-@pytest.mark.parametrize("n,e_cap,seed", [(100, 512, 0), (50_000, 400_000,
-                                                          1)])
-def test_segsum_kernel_matches_plain(cuda, n, e_cap, seed):
+@pytest.mark.parametrize("n,e_cap,cols,seed,long_seg,garbage", [
+    (100, 512, 16, 0, 0, False), (50_000, 400_000, 16, 1, 0, False),
+    (200_000, 1_000_000, 1, 2, 0, False),  # the importance counts' C = 1
+    (3000, 20_000, 16, 3, 2500, False),  # one Gaussian of 2,500 entries
+    (3000, 20_000, 1, 4, 700, True),
+    (20_000, 100_000, 16, 5, 0, True),  # NaN rows and flags past the total
+    (2000, 9000, 3, 6, 300, True)])  # C not a multiple of 4
+def test_segsum_kernel_matches_plain(cuda, n, e_cap, cols, seed, long_seg,
+                                     garbage):
     from webdgs_tpu_torch.ops import segsum as tseg
     rng = np.random.default_rng(seed)
     counts = rng.integers(0, 9, n).astype(np.int32)
+    counts[n // 2] = long_seg or counts[n // 2]
     while counts.sum() > e_cap:
         counts[rng.integers(0, n)] = 0
     total = int(counts.sum())
+    # the binning's layout: the first `total` sorted slots hold the
+    # expansion indices [0, total), the rest the others
     perm = rng.permutation(e_cap).astype(np.int32)
     perm = perm[np.argsort(perm >= total, kind="stable")]
-    rows = torch.tensor(rng.standard_normal((16, e_cap)),
+    rows = torch.tensor(rng.standard_normal((cols, e_cap)),
                         dtype=torch.float32, device=cuda)
     valid = torch.arange(e_cap, device=cuda) < total
+    if garbage:
+        rows[:, total:] = float("nan")
+        valid[total:] = torch.tensor(rng.random(e_cap - total) < 0.5,
+                                     device=cuda)
     args = (torch.tensor(counts, device=cuda),
-            tseg.inverse_permutation(torch.tensor(perm, device=cuda)), valid)
+            torch.tensor(perm, device=cuda), valid)
     launches = tseg.segment_sum_rows.kernel_launches
     k1 = tseg.segment_sum_rows(rows, *args)
     k2 = tseg.segment_sum_rows(rows, *args)
@@ -187,6 +200,7 @@ def test_segsum_kernel_matches_plain(cuda, n, e_cap, seed):
     assert tseg.segment_sum_rows.kernel_launches == launches + 2
     assert torch.equal(k1, k2)
     p = tseg.segment_sum_rows_plain(rows, *args)
+    assert bool(torch.isfinite(k1).all())
     scale = max(float(p.abs().max()), 1.0)
     assert float((k1 - p).abs().max()) / scale <= 1e-5
 

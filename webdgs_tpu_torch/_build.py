@@ -51,8 +51,9 @@ SIGNATURES = {
     # ldssim, c1, c2, bg0, bg1, bg2, dpix, sums, stream
     "webdgs_tile_loss": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                          _F, _F, _F, _F, _P, _P, _P),
-    # rows, n_rows, row_stride, slots, valid, starts, n, out, stream
-    "webdgs_segsum": (_P, _I, _L, _P, _P, _P, _I, _P, _P),
+    # rows, n_rows, row_stride, entry_source, valid, e_len, counts, n,
+    # work, work_bytes, out, device, stream
+    "webdgs_segsum": (_P, _I, _L, _P, _P, _I, _P, _I, _P, _L, _P, _I, _P),
     # attrs16, e_len, tile_offsets, pix, n_tiles, ntx, tile_w, tile_h,
     # chunk, alpha_min, alpha_max, out, stream
     "webdgs_importance": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,

@@ -18,10 +18,10 @@ raises.
 
 ``pack_entry_attrs`` gathers per-Gaussian attributes into per-entry rows.
 Given the binning's ``entry_source``/``gauss_counts`` (the training path),
-the gather is a ``torch.autograd.Function`` whose backward inverts the sort
-permutation and sums per Gaussian with the segment-sum kernel
-(``ops/segsum.py``): always the exact-f32 segment sum, deterministic, and
-never an autograd scatter of the index gather.
+the gather is a ``torch.autograd.Function`` whose backward reorders the
+rows by the sort permutation and sums per Gaussian with the segment-sum
+kernel (``ops/segsum.py``): always the exact-f32 segment sum,
+deterministic, and never an autograd scatter of the index gather.
 
 Alpha semantics (the reference's): alpha = min(alpha_max, op *
 exp(-0.5 * conic quad form)); pixels outside the splat's SnugBox extents

@@ -14,11 +14,11 @@ A densify event renders ``metric_views`` views drawn with the same
 ``config.seed``, and swaps the state in; capacity grows geometrically when
 the headroom runs out.  An event reads its point counts and decisions back
 in one transfer, but it waits on the device more often than that: each
-metric view makes seven synchronizing calls (the bounds checks of the
-rasterize, importance and segment-sum wrappers read offsets back four
-times, and the metric camera, the projection and the background composite
-upload host constants with blocking copies), and the view indices are
-uploaded once.  The multi-device mesh is a later slice of the port: ``mesh=``
+metric view makes five synchronizing calls (the bounds checks of the
+rasterize and importance wrappers read offsets back twice, and the metric
+camera, the projection and the background composite upload host constants
+with blocking copies), and the view indices are uploaded once; the
+segment sum reads nothing back.  The multi-device mesh is a later slice of the port: ``mesh=``
 raises ``NotImplementedError``.
 """
 
