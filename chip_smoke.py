@@ -8,6 +8,14 @@ With ``--before-segsum PATH`` it also builds an earlier segsum.cu (for
 example ``git archive 8c7f768 webdgs_tpu_torch/csrc/segsum.cu`` unpacked
 into a directory that .gitignore lists) and times it beside the
 segment-sum kernel on the same inputs, comparing their sums bit for bit.
+``--before-bwd PATH`` does the same for an earlier rasterize_bwd.cu (for
+example ``git archive 3554122 webdgs_tpu_torch/csrc/rasterize_bwd.cu``):
+built beside the backward kernel and timed in turns with it on the same
+inputs at both of its shapes, back to back and queued; this one must be
+faster in every pairing.  ``--ablate-bwd`` also builds the copies of the
+backward kernel that BWD_VARIANTS (and, with ``--before-bwd``,
+BEFORE_BWD_VARIANTS) describe, each with one part changed, and times each
+at both shapes: timing probes of where the kernel's time goes.
 
 Phases (any failure raises, and the script exits non-zero with no result):
   1. device: CUDA must be available; prints the card's name and power limit;
@@ -21,18 +29,24 @@ Phases (any failure raises, and the script exits non-zero with no result):
      the first slice run twice and required bit-identical, and the bound
      (bytes or operations) this run's inputs need; the segment sum also
      beside the library call index_add_, and timed with the launch queue
-     filled first as well as back to back;
+     filled first as well as back to back; the backward kernel also queued,
+     with its tiles' entry counts and the entries they visit before
+     saturating, its launch shape (pixels per thread, butterfly batch,
+     CTAs per SM), and its forward + autograd path run in sync debug mode
+     "error" (no call may wait for the device);
   4. the viewer slice: a Viewer renders 5 bench frames through the render
      kernels (their launch counters are reset just before and must grow),
      and a small frame rendered on the card matches the plain CPU render;
   5. the training slice: bench.py's recipe (target = the scene's own
      render, capacity 1.2x the observed entries), 20 train_steps through
      all five kernels (every counter reset just before and must grow),
-     finite parameters and loss, one step from one state twice giving
-     bit-identical parameters, and a small step on the card matching the
-     CPU;
+     finite parameters and loss, one step's synchronizing calls tallied
+     by line (none may come from the backward raster), one step from one
+     state twice giving bit-identical parameters, and a small step on the
+     card matching the CPU;
   6. realistic size: one frame and 3 train steps of 1M Gaussians at
-     sh_deg 3, 1920x1080;
+     sh_deg 3, 1920x1080, and the backward kernel against its plain
+     version at that step's inputs;
   7. server: a view-mode ViewerServer on 127.0.0.1 answers 3 JPEG frames,
      a control post and /stats over HTTP;
   8. the entry point: ``python -m webdgs_tpu_torch train --no-densify`` on
@@ -333,10 +347,7 @@ def build_before_segsum(path: str):
     import ctypes
     import torch
     from webdgs_tpu_torch import _build
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _build.BUILD_DIR / "segsum_before.so"
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    path], check=True, capture_output=True, timeout=600)
+    so, _ = _build.build_one(path, "segsum_before")
     lib = ctypes.CDLL(str(so))
     p_, i_ = ctypes.c_void_p, ctypes.c_int
     lib.webdgs_segsum.argtypes = (p_, i_, ctypes.c_longlong, p_, p_, p_, i_,
@@ -361,6 +372,275 @@ def build_before_segsum(path: str):
 
 # set by --before-segsum: the earlier kernel segsum_check compares with
 BEFORE_SEGSUM = None
+
+
+def load_bwd(so_path):
+    """A library holding ``webdgs_rasterize_bwd``, loaded on its own: this
+    checkout's C interface where the library exports
+    ``webdgs_rasterize_bwd_occupancy``, else that of commits 0779f1e to
+    3554122 (no tile order).  Returns a function of (attrs16,
+    tile_offsets, gpix5, ntx, nty, settings) that runs it as the port's
+    wrapper does, on a zeroed (16, E) output.  Its ``ctas_per_sm`` is a
+    function of the settings with this checkout's interface, else None."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    lib = ctypes.CDLL(str(so_path))
+    current = hasattr(lib, "webdgs_rasterize_bwd_occupancy")
+    fn = lib.webdgs_rasterize_bwd
+    argtypes = _build.SIGNATURES["webdgs_rasterize_bwd"]
+    fn.argtypes = argtypes if current else argtypes[:-2] + argtypes[-1:]
+    fn.restype = ctypes.c_int
+
+    def run(attrs16, toff, gpix5, ntx, nty, settings):
+        d = torch.zeros_like(attrs16)
+        args = [attrs16.data_ptr(), attrs16.shape[1], toff.data_ptr(),
+                gpix5.data_ptr(), ntx * nty, ntx, settings.tile_w,
+                settings.tile_h, settings.chunk, settings.alpha_min,
+                settings.alpha_max, settings.t_threshold,
+                math.log(settings.t_threshold), d.data_ptr()]
+        if current:
+            args.append(torch.empty((ntx * nty,), dtype=torch.int32,
+                                    device=attrs16.device).data_ptr())
+        err = fn(*args, torch.cuda.current_stream(attrs16.device).cuda_stream)
+        check(err == 0, f"{so_path}: CUDA error {err} at launch")
+        return d
+
+    def ctas_per_sm(settings) -> int:
+        out = (ctypes.c_int * 5)()
+        occ = lib.webdgs_rasterize_bwd_occupancy
+        occ.argtypes = _build.SIGNATURES["webdgs_rasterize_bwd_occupancy"]
+        check(occ(settings.tile_w, settings.tile_h, settings.chunk, out) == 0,
+              f"{so_path}: occupancy query")
+        return out[2]
+    run.ctas_per_sm = ctas_per_sm if current else None
+    return run
+
+
+# --ablate-bwd: copies of a backward kernel's source with one part changed
+# by text substitution, built beside it and timed on its inputs.  Each is a
+# timing probe, not the function: the time a copy saves is the share of
+# the part it takes out.  name -> ((text, replacement), ...); every text
+# must occur in the source.  Of this checkout's csrc/rasterize_bwd.cu:
+BWD_VARIANTS = {
+    "rows_of_32": (
+        ("const bool blocked = tile_w % 8 == 0 && tile_h % 4 == 0;",
+         "const bool blocked = false;"),),
+    "batch_2": (("constexpr int kB = 4;", "constexpr int kB = 2;"),),
+    "batch_8": (("constexpr int kB = 4;", "constexpr int kB = 8;"),),
+    "pixels_2": (("constexpr int kR = 4;", "constexpr int kR = 2;"),),
+    "index_order": (("const int t = order[blockIdx.x];",
+                     "const int t = blockIdx.x;"),),
+    "no_butterfly": (
+        ("if (__any_sync(kFull, live_any)) warp_sum_batch(v, lane);", ""),),
+    "no_crosswarp": (("for (int w = 1; w < nwarps; ++w) {",
+                      "for (int w = 1; w < 1; ++w) {"),),
+    "no_box_skip": ((
+        "if (!(fabsf(dx) <= c89ab.y && fabsf(dy) <= c89ab.z)) continue;",
+        ""),),
+    "fast_transmittance": (("log_t_un[r] += log1pf(-alpha);",
+                            "log_t_un[r] += __logf(1.f - alpha);"),
+                           ("t_cur[r] = expf(log_t_un[r]);",
+                            "t_cur[r] = __expf(log_t_un[r]);")),
+}
+# of commit 3554122's (the thread-per-pixel kernel), given as --before-bwd
+BEFORE_BWD_VARIANTS = {
+    "no_shuffles": (
+        ("v[k] += __shfl_down_sync(0xffffffffu, v[k], off);", ""),),
+    "no_crosswarp": (("for (int w = 1; w < nwarps; ++w) {",
+                      "for (int w = 1; w < 1; ++w) {"),),
+    "fast_division": (("(suffix - cum_u) / (1.f - alpha)",
+                       "__fdividef(suffix - cum_u, 1.f - alpha)"),),
+    "fast_transmittance": (("log_t_un += log1pf(-alpha);",
+                            "log_t_un += __logf(1.f - alpha);"),
+                           ("t_cur = expf(log_t_un);",
+                            "t_cur = __expf(log_t_un);")),
+}
+
+
+def build_bwd_variants(jobs) -> dict:
+    """Build backward kernels beside the library, every nvcc call started
+    at once.  ``jobs``: (name, source, ((text, replacement), ...)); a
+    source with substitutions is written with them into the build
+    directory first.  Returns name -> (the function load_bwd gives,
+    registers per thread of its kernels' largest)."""
+    import concurrent.futures
+    from pathlib import Path
+    from webdgs_tpu_torch import _build
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, src, subs in jobs:
+        paths[name] = Path(src)
+        if subs:
+            body = paths[name].read_text()
+            for old, new in subs:
+                check(old in body, f"variant {name}: {old!r} is not in {src}")
+                body = body.replace(old, new)
+            paths[name] = out_dir / f"rasterize_bwd_{name}.cu"
+            paths[name].write_text(body)
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        built = dict(zip(paths, pool.map(
+            lambda n: _build.build_one(paths[n], f"rasterize_bwd_{n}"),
+            paths)))
+    return {name: (load_bwd(so), max(
+        int(r) for r in re.findall(r"Used (\d+) registers", log)))
+        for name, (so, log) in built.items()}
+
+
+# set by --before-bwd: an earlier backward kernel, timed beside this one
+BEFORE_BWD = None
+# set by --ablate-bwd: name -> (variant, its registers), timed beside it
+BWD_ABLATIONS: dict = {}
+
+
+def backward_step_inputs(scene, cam, w: int, h: int, settings, cap: int,
+                         target) -> dict:
+    """The backward kernel's inputs at one training step of ``scene`` seen
+    from ``cam`` against ``target``: the packed entries (16, cap), the
+    tile offsets and the (T, 5, P) pixel cotangents that the tile-loss
+    kernel's dpix and the forward tiles give, as ``_RasterizeTiles.
+    backward`` folds them.  Also the forward tiles with n_contrib (for the
+    pairs the raster kernels evaluate) and the tile grid."""
+    import torch
+    from webdgs_tpu_torch.ops import binning, rasterize, tile_loss
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    from webdgs_tpu_torch.ops.projection import project_gaussians
+    ntx, nty = binning.tile_grid(w, h, settings)
+    with torch.no_grad():
+        attrs, aux = project_gaussians(scene.params(), scene.alive, cam, w,
+                                       h, scene.sh_deg, settings)
+        bins = binning.bin_splats(aux, w, h, settings, capacity=cap,
+                                  attrs=attrs, with_source=True)
+        a16 = rasterize.pack_entry_attrs(attrs, bins.entry_gauss,
+                                         bins.entry_valid)
+        out = rasterize.rasterize_tiles(a16, bins.tile_offsets, ntx, nty,
+                                        settings)
+        dpix, _ = tile_loss.tile_loss_tiles(out, target, w, h, ntx, nty,
+                                            LossConfig(), settings)
+        suffix = (torch.sum(dpix[:, 0:4] * out[:, 0:4], dim=1, keepdim=True)
+                  + dpix[:, 4:5] * out[:, 4:5])
+        gpix5 = torch.cat([dpix[:, 0:4], suffix], dim=1).contiguous()
+    return {"attrs16": a16, "tile_offsets": bins.tile_offsets,
+            "gpix5": gpix5, "ntx": ntx, "nty": nty, "fwd": out,
+            "entries": int(bins.total_entries)}
+
+
+def backward_check(label: str, inp: dict, settings, iters: int,
+                   plain_iters: int) -> dict:
+    """The backward kernel against ``rasterize_tiles_backward_plain`` on
+    one step's inputs (``backward_step_inputs``): scaled error within
+    BWD_TOL, two runs bit-identical, rows 9-15 zero.  Times the kernel
+    back to back (in turns with its plain version) and with the launch
+    queue filled first, and gives the bound from the pairs these inputs
+    make the raster kernels evaluate, the tiles' work and the launch
+    shape.  With BEFORE_BWD, the earlier kernel too, on the same inputs, in
+    turns with this one."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    from webdgs_tpu_torch.ops import rasterize
+    args = (inp["attrs16"], inp["tile_offsets"], inp["gpix5"], inp["ntx"],
+            inp["nty"], settings)
+    bk = rasterize.rasterize_tiles_backward(*args)
+    bk2 = rasterize.rasterize_tiles_backward(*args)
+    bp = rasterize.rasterize_tiles_backward_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(bk, bk2), f"backward raster ({label}) is not "
+          "bit-identical")
+    err = max_rel(bk, bp)
+    check(err <= BWD_TOL, f"backward raster ({label}) scaled err {err}")
+    check(not bk[9:].any() and float(bk[0:9].abs().max()) > 0,
+          f"backward raster ({label}) rows")
+    del bk2, bp
+
+    def kernel():
+        return rasterize._rasterize_tiles_backward_cuda(*args)
+    ms, plain_ms = time_pair(
+        kernel, lambda: rasterize.rasterize_tiles_backward_plain(*args),
+        iters, plain_iters)
+    dev_ms = queued_ms(kernel, iters)
+    pairs = evaluated_pairs(inp["fwd"], inp["tile_offsets"], settings)
+    e_len, n_tiles = inp["attrs16"].shape[1], inp["ntx"] * inp["nty"]
+    # 11 rows + offsets + (T, 5, P) cotangents in, (16, E) rows out; the
+    # pairs evaluated are the forward's (the same per-pixel early exit)
+    bound = bound_ms(4 * (11 * e_len + n_tiles + 1
+                          + 5 * n_tiles * settings.tile_px + 16 * e_len),
+                     BWD_OPS_PER_PAIR * pairs)
+    shape = (ctypes.c_int * 5)()
+    _build.check(_build.library().webdgs_rasterize_bwd_occupancy(
+        settings.tile_w, settings.tile_h, settings.chunk, shape),
+        "webdgs_rasterize_bwd_occupancy")
+    launch = dict(zip(("threads", "smem_bytes", "ctas_per_sm",
+                       "pixels_per_thread", "batch"), shape))
+    work = tile_work(inp["fwd"], inp["tile_offsets"], settings)
+    res = {"err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+           "bound": bound, "pairs": pairs, "entries": inp["entries"],
+           "slots": e_len, "launch": launch, "tile_work": work}
+    print(f"[kernels] rasterize_tiles_backward {label}: {inp['entries']} "
+          f"entries of {e_len} slots, {n_tiles} tiles (entries per tile "
+          f"max {work['count']['max']:.0f}, mean {work['count']['mean']:.1f},"
+          f" p99 {work['count']['p99']:.0f}; visited before saturation max "
+          f"{work['visited']['max']:.0f}, mean "
+          f"{work['visited']['mean']:.1f}, p99 {work['visited']['p99']:.0f}"
+          f"), {pairs} (pixel, entry) pairs; launch {launch}; scaled max "
+          f"err {err:.3e} (<= {BWD_TOL}); bit-identical repeat; rows 9-15 "
+          f"zero; kernel {ms:.4f} ms, queued {dev_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})",
+          flush=True)
+    if BEFORE_BWD is not None:
+        def before():
+            return BEFORE_BWD(*args)
+        before_err = max_rel(before(), bk)
+        # in turns: new, before, new, before
+        b2b = [cuda_ms(f, iters) for f in (kernel, before, kernel, before)]
+        queued = [queued_ms(f, iters) for f in (kernel, before, kernel,
+                                                before)]
+        res["before"] = {"scaled_diff": before_err, "ms": b2b[1::2],
+                         "device_ms": queued[1::2], "new_ms": b2b[0::2],
+                         "new_device_ms": queued[0::2]}
+        check(max(b2b[0::2]) < min(b2b[1::2]) and
+              max(queued[0::2]) < min(queued[1::2]),
+              f"backward raster ({label}) is not faster than the earlier "
+              f"kernel: {res['before']}")
+        print(f"[kernels] rasterize_tiles_backward {label}, the earlier "
+              f"kernel on the same inputs: scaled difference "
+              f"{before_err:.3e}; back to back {b2b[1]:.4f} / {b2b[3]:.4f} "
+              f"ms (this one {b2b[0]:.4f} / {b2b[2]:.4f}); queued "
+              f"{queued[1]:.4f} / {queued[3]:.4f} ms (this one "
+              f"{queued[0]:.4f} / {queued[2]:.4f})", flush=True)
+    for name, (variant, regs) in BWD_ABLATIONS.items():
+        def run_variant(variant=variant):
+            return variant(*args)
+        diff = max_rel(run_variant(), bk)
+        v_ms = cuda_ms(run_variant, iters)
+        v_dev = queued_ms(run_variant, iters)
+        ctas = variant.ctas_per_sm and variant.ctas_per_sm(settings)
+        print(f"[kernels] rasterize_tiles_backward {label}, variant {name} "
+              f"(a timing probe): {regs} registers, {ctas} CTAs per SM; "
+              f"scaled difference {diff:.3e}; {v_ms:.4f} ms, queued "
+              f"{v_dev:.4f} ms", flush=True)
+    return res
+
+
+def tile_work(fwd_tiles, tile_offsets, settings) -> dict:
+    """Per-tile entry counts and the entries each tile's raster kernels
+    visit: a tile stops after the chunk in which its last pixel saturates
+    (through that pixel's n_contrib), or at the end of its range."""
+    import torch
+    cnt = (tile_offsets[1:] - tile_offsets[:-1]).to(torch.float64)
+    sat = fwd_tiles[:, 4] < settings.t_threshold
+    per_px = torch.where(sat, fwd_tiles[:, 5].to(torch.float64), cnt[:, None])
+    k = settings.chunk
+    visited = torch.minimum(torch.ceil(per_px.amax(dim=1) / k) * k, cnt)
+
+    def stats(x):
+        return {"max": float(x.max()), "mean": float(x.mean()),
+                "p99": float(torch.quantile(x, 0.99)),
+                "p50": float(torch.quantile(x, 0.5))}
+    return {"tiles": int(cnt.numel()), "count": stats(cnt),
+            "visited": stats(visited),
+            "saturated_px": float(sat.to(torch.float64).mean())}
 
 
 def device_us_by_kernel(fn, iters: int = 20) -> dict:
@@ -468,6 +748,43 @@ def segsum_check(label: str, rows_cm, counts, src, valid, exp_gauss,
     return res
 
 
+def sync_tally(fn):
+    """Run ``fn`` with every call that waits for the device (a read back, a
+    blocking copy) warned (``torch.cuda.set_sync_debug_mode("warn")``).
+    Returns fn's result and the calls tallied by the line that made them,
+    {"file:line": count}."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs: dict[str, int] = {}
+    for wn in caught:
+        if "synchronizing" in str(wn.message):
+            where = f"{os.path.relpath(wn.filename)}:{wn.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+    return out, syncs
+
+
+def backward_wrapper_lines() -> list[tuple[str, int, int]]:
+    """(file, first line, last line) of the backward raster's Python path:
+    the autograd backward, its wrapper, the launch and the checks only it
+    runs."""
+    import inspect
+    from webdgs_tpu_torch.ops import rasterize
+    spans = []
+    for fn in (rasterize._RasterizeTiles.backward,
+               rasterize.rasterize_tiles_backward, rasterize._check_gpix,
+               rasterize._rasterize_tiles_backward_cuda):
+        lines, first = inspect.getsourcelines(fn)
+        spans.append((os.path.relpath(inspect.getsourcefile(fn)), first,
+                      first + len(lines) - 1))
+    return spans
+
+
 def densify_phase(dev, s1m, n: int = 1_000_000,
                   size: tuple[int, int] = (1920, 1080)) -> dict:
     """Two densify events through the Trainer at 1M sh3 / 1920x1080 with
@@ -527,21 +844,8 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
         torch.cuda.synchronize()
         before = (trainer.num_points, trainer.scene.capacity)
         t0 = time.perf_counter()
-        # every call that waits for the device (a read back, a blocking
-        # copy) warns once; tallied by the line that made it
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                run_densify(w_, h_)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        _, syncs = sync_tally(lambda: run_densify(w_, h_))
         torch.cuda.synchronize()
-        syncs: dict[str, int] = {}
-        for wn in caught:
-            if "synchronizing" in str(wn.message):
-                where = (f"{os.path.relpath(wn.filename)}:{wn.lineno}")
-                syncs[where] = syncs.get(where, 0) + 1
         events.append({"ms": 1e3 * (time.perf_counter() - t0),
                        "points": (before[0], trainer.num_points),
                        "capacity": (before[1], trainer.scene.capacity),
@@ -859,6 +1163,14 @@ def main(argv: list[str] | None = None) -> int:
                     help="an earlier csrc/segsum.cu (commit 8c7f768's "
                     "interface) to time and compare beside the segment-sum "
                     "kernel at both of its shapes")
+    ap.add_argument("--before-bwd", metavar="RASTERIZE_BWD_CU",
+                    help="an earlier csrc/rasterize_bwd.cu (the interface "
+                    "of commits 0779f1e to 3554122) to time beside the "
+                    "backward kernel at both of its shapes")
+    ap.add_argument("--ablate-bwd", action="store_true",
+                    help="also time BWD_VARIANTS of the backward kernel "
+                    "(and BEFORE_BWD_VARIANTS of the --before-bwd source) "
+                    "at both of its shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -888,6 +1200,23 @@ def main(argv: list[str] | None = None) -> int:
         BEFORE_SEGSUM = build_before_segsum(args.before_segsum)
         print(f"[build] the earlier segment-sum kernel {args.before_segsum}",
               flush=True)
+    jobs = [("before", args.before_bwd, ())] if args.before_bwd else []
+    if args.ablate_bwd:
+        jobs += [(n, _build.CSRC / "rasterize_bwd.cu", subs)
+                 for n, subs in BWD_VARIANTS.items()]
+        if args.before_bwd:
+            jobs += [(f"before_{n}", args.before_bwd, subs)
+                     for n, subs in BEFORE_BWD_VARIANTS.items()]
+    if jobs:
+        global BEFORE_BWD
+        BWD_ABLATIONS.update(build_bwd_variants(jobs))
+        if args.before_bwd:
+            BEFORE_BWD, regs = BWD_ABLATIONS.pop("before")
+            print(f"[build] the earlier backward kernel {args.before_bwd}: "
+                  f"{regs} registers", flush=True)
+        if args.ablate_bwd:
+            print(f"[build] backward variants: {sorted(BWD_ABLATIONS)}",
+                  flush=True)
 
     import torch.nn.functional as F
     from webdgs_tpu_torch.config import RenderSettings, quantize_budget
@@ -1022,36 +1351,35 @@ def main(argv: list[str] | None = None) -> int:
               + dk[:, 4:5] * tout[:, 4:5])
     gpix5 = torch.cat([dk[:, 0:4], suffix], dim=1).contiguous()
     toff = tbins.tile_offsets
+    with torch.no_grad():
+        tfwd = rasterize.rasterize_tiles(t16, toff, ntx, nty, settings)
+    bwd = backward_check(f"{w}x{h} training step", {
+        "attrs16": t16, "tile_offsets": toff, "gpix5": gpix5, "ntx": ntx,
+        "nty": nty, "fwd": tfwd, "entries": int(tbins.total_entries)},
+        settings, 20, 1)
     bk = rasterize.rasterize_tiles_backward(t16, toff, gpix5, ntx, nty,
                                             settings)
-    bk2 = rasterize.rasterize_tiles_backward(t16, toff, gpix5, ntx, nty,
-                                             settings)
-    bp = rasterize.rasterize_tiles_backward_plain(t16, toff, gpix5, ntx,
-                                                  nty, settings)
+    # the backward's whole path, autograd included, never waits for the
+    # device: in sync debug mode "error" a synchronizing call raises
+    a16g = t16.detach().requires_grad_(True)
     torch.cuda.synchronize()
-    check(torch.equal(bk, bk2), "backward raster is not bit-identical")
-    bwd_err = max_rel(bk, bp)
-    check(bwd_err <= BWD_TOL, f"backward raster scaled err {bwd_err}")
-    check(not bk[11:].any() and float(bk[0:9].abs().max()) > 0,
-          "backward raster rows")
-    bwd_ms, bwd_plain_ms = time_pair(
-        lambda: rasterize._rasterize_tiles_backward_cuda(t16, toff, gpix5,
-                                                         ntx, nty, settings),
-        lambda: rasterize.rasterize_tiles_backward_plain(
-            t16, toff, gpix5, ntx, nty, settings), 20, 1)
-    # 11 rows + offsets + (T, 5, P) cotangents in, (16, E) rows out; the
-    # pairs evaluated are the forward's (the same per-pixel early exit)
-    bwd_bound = bound_ms(4 * (11 * cap + n_tiles + 1 + 5 * n_tiles * npx
-                              + 16 * cap), BWD_OPS_PER_PAIR * pairs)
-    print(f"[kernels] rasterize_tiles_backward: scaled max err "
-          f"{bwd_err:.3e} (<= {BWD_TOL}); bit-identical repeat; kernel "
-          f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; bound "
-          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})", flush=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fwd_g = rasterize._RasterizeTiles.apply(a16g, toff, ntx, nty,
+                                                settings, False)
+        (g_auto,) = torch.autograd.grad(fwd_g, a16g, dk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(g_auto, bk), "the backward through autograd differs "
+          "from rasterize_tiles_backward")
+    print("[kernels] rasterize_tiles_backward: forward kernel + autograd "
+          "backward ran in sync debug mode \"error\" (no synchronizing "
+          "call) and equal the wrapper's rows bit for bit", flush=True)
 
     seg = segsum_check(f"{w}x{h} training step", bk, tbins.gauss_counts,
                        tbins.entry_source, tbins.entry_valid,
                        tbins.expansion_gauss, 5)
-    del dk, dk2, dp, bk, bk2, bp
+    del dk, dk2, dp, bk, tfwd, a16g, fwd_g, g_auto
     torch.cuda.empty_cache()
 
     # --- 3c. the importance kernel at the bench scene's metric view ---
@@ -1135,6 +1463,20 @@ def main(argv: list[str] | None = None) -> int:
     check(finite and math.isfinite(float(m_cur["loss"])),
           "training produced non-finite parameters or loss")
     check(int(m_cur["tile_entries"]) > 0, "training step binned nothing")
+    # one step's synchronizing calls, by line; none may come from the
+    # backward raster
+    _, step_syncs = sync_tally(lambda: train_step(
+        s_cur, o_cur, cam, own, img_w=w, img_h=h, settings=settings,
+        entry_capacity=cap))
+    torch.cuda.synchronize()
+    bwd_syncs = {k: v for k, v in step_syncs.items()
+                 for f, a, b in backward_wrapper_lines()
+                 if k.rsplit(":", 1)[0] == f and a <= int(k.rsplit(":", 1)[1])
+                 <= b}
+    check(not bwd_syncs, f"the backward raster synchronized: {bwd_syncs}")
+    print(f"[train] one bench train_step waits on the device "
+          f"{sum(step_syncs.values())} times {step_syncs}; none from the "
+          f"backward raster", flush=True)
     print(f"[train] bench 100k 800x600, 20 train_steps after 2 warm-up: "
           f"{step_ms:.2f} "
           f"ms/step, {1e3 / step_ms:.2f} it/s; loss "
@@ -1215,6 +1557,13 @@ def main(argv: list[str] | None = None) -> int:
     del pert
     cap1m = quantize_budget(v1m.entry_demand * 1.2, s1m.chunk,
                             s1m.chunk * 8)
+    # the backward kernel at this step's inputs
+    inp1m = backward_step_inputs(big, cam1m, 1920, 1080, s1m, cap1m,
+                                 target1m)
+    bwd1m = backward_check("1M sh3 1920x1080 training step", inp1m, s1m, 5,
+                           1)
+    del inp1m
+    torch.cuda.empty_cache()
     s_big, o_big = big, init_adam_state(big.params())
     torch.cuda.reset_peak_memory_stats()
     big_steps = []
@@ -1341,10 +1690,21 @@ def main(argv: list[str] | None = None) -> int:
         entry("tile_loss", "webdgs_tpu_torch/csrc/tile_loss.cu",
               "webdgs_tpu/ops/tile_loss.py:106", loss_err, loss_ms,
               loss_plain_ms, loss_bound, None),
+        # at the training step's inputs; the 1M sh3 / 1920x1080 step's
+        # beside it
         entry("rasterize_tiles_backward",
               "webdgs_tpu_torch/csrc/rasterize_bwd.cu",
-              "webdgs_tpu/ops/rasterize.py:347", bwd_err, bwd_ms,
-              bwd_plain_ms, bwd_bound, None),
+              "webdgs_tpu/ops/rasterize.py:347", bwd["err"], bwd["ms"],
+              bwd["plain_ms"], bwd["bound"], None,
+              device_ms=bwd["device_ms"], launch=bwd["launch"],
+              tile_work=bwd["tile_work"], before=bwd.get("before"),
+              step_1m={"max_abs_err": bwd1m["err"], "ms": bwd1m["ms"],
+                       "plain_ms": bwd1m["plain_ms"],
+                       "bound_ms": bwd1m["bound"][0],
+                       "bound_by": bwd1m["bound"][1], "library_ms": None,
+                       "device_ms": bwd1m["device_ms"],
+                       "tile_work": bwd1m["tile_work"],
+                       "before": bwd1m.get("before")}),
         # at the training step's inputs (C = 16); the one-row launch at
         # the densify view beside it
         entry("segment_sum_rows", "webdgs_tpu_torch/csrc/segsum.cu",

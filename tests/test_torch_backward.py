@@ -89,6 +89,55 @@ def test_rasterize_vjp_ignores_ncontrib_cotangent():
     torch.testing.assert_close(d1, d2, rtol=0, atol=0)
 
 
+def _backward_inputs(seed):
+    """A frame's packed entries and offsets (torch, CPU) and random pixel
+    cotangents (T, 5, P)."""
+    a16, bins, ntx, nty = _frame(80, 3, 48, 32)
+    st = torch_settings()
+    rng = np.random.default_rng(seed)
+    gpix5 = torch.tensor(rng.normal(0, 1, (ntx * nty, tras.NUM_GPIX,
+                                           st.tile_px)), dtype=torch.float32)
+    return t_(a16), t_(bins.tile_offsets), gpix5, ntx, nty, st
+
+
+@pytest.mark.parametrize("fault", ["past_end", "below_zero", "both"])
+def test_backward_clamps_out_of_range_offsets(fault):
+    """Tile ranges reaching outside [0, E] are clamped, as the kernel
+    clamps them: the wrapper (plain on the CPU) gives what the plain
+    version gives on the clamped offsets, bit for bit."""
+    a16, off, gpix5, ntx, nty, st = _backward_inputs(2)
+    e_len = a16.shape[1]
+    bad = off.clone()
+    if fault in ("past_end", "both"):
+        bad[-2:] = torch.tensor([e_len + 5, 2 ** 30], dtype=torch.int32)
+    if fault in ("below_zero", "both"):
+        bad[0] = -7
+    clamped = bad.clamp(0, e_len)
+    assert not torch.equal(bad, clamped)
+    want = tras.rasterize_tiles_backward_plain(a16, clamped, gpix5, ntx,
+                                               nty, st)
+    got = tras.rasterize_tiles_backward(a16, bad, gpix5, ntx, nty, st)
+    assert got.shape == (16, e_len) and bool(torch.isfinite(got).all())
+    assert float(want[0:9].abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_rasterize_backward_reads_nothing_back(monkeypatch):
+    """The backward wrapper never reads the offsets back to the host (the
+    kernel clamps each range itself); the forward still checks them."""
+    a16, off, gpix5, ntx, nty, st = _backward_inputs(3)
+    want = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, st)
+
+    def read_back(*args):
+        raise AssertionError("offsets read back")
+
+    monkeypatch.setattr(tras, "_check_offsets", read_back)
+    got = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, st)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(AssertionError, match="offsets read back"):
+        tras.rasterize_tiles(a16, off, ntx, nty, st)
+
+
 def _segments(n, e_cap, seed):
     rng = np.random.default_rng(seed)
     counts = rng.integers(0, 9, n).astype(np.int32)

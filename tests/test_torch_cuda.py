@@ -137,12 +137,36 @@ def test_tile_loss_kernel_matches_plain(cuda, w, h, bg):
     torch.testing.assert_close(sk.sum(0), sp.sum(0), rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("n,w,h,shift", [(300, 96, 80, 0.0),
-                                         (5000, 640, 480, 0.0),
-                                         (3000, 320, 240, 5.0)])
-def test_rasterize_backward_kernel_matches_plain(cuda, n, w, h, shift):
+@pytest.mark.parametrize("n,w,h,shift,case", [
+    (300, 96, 80, 0.0, "plain"), (5000, 640, 480, 0.0, "plain"),
+    (3000, 320, 240, 5.0, "plain"),
+    # ranges of several chunks whose counts are multiples of neither the
+    # butterfly batch nor the chunk (faint splats: few pixels saturate)
+    (20_000, 96, 80, -3.0, "multichunk"),
+    # every range starts 3 slots later: no tile is 16-byte aligned
+    (5000, 320, 240, 0.0, "unaligned"),
+    # nearly opaque and dense: whole warps saturate within a few entries
+    (20_000, 96, 80, 6.0, "plain"),
+    # offsets reaching past E (and one below 0): clamped, no fault
+    (5000, 320, 240, 0.0, "past_end")])
+def test_rasterize_backward_kernel_matches_plain(cuda, n, w, h, shift, case):
     s, bins, a16, out, ntx, nty = _train_frame(cuda, n, w, h, seed=13,
                                                opacity_shift=shift)
+    off = bins.tile_offsets
+    cnt = (off[1:] - off[:-1]).cpu()
+    if case == "multichunk":
+        assert int(cnt.max()) > 2 * s.chunk
+        assert bool(((cnt > s.chunk) & (cnt % 8 != 0)).any())
+    elif case == "unaligned":
+        a16 = torch.cat([torch.zeros((16, 3), device=cuda), a16],
+                        dim=1).contiguous()
+        off = off + 3
+    elif case == "past_end":
+        e_len = a16.shape[1]
+        off = off.clone()
+        off[0] = -5
+        off[-3:] = torch.tensor([e_len + 7, e_len + 100, 2 ** 30],
+                                dtype=torch.int32, device=cuda)
     rng = np.random.default_rng(14)
     g = torch.tensor(rng.normal(0, 1, out.shape), dtype=torch.float32,
                      device=cuda)
@@ -150,18 +174,16 @@ def test_rasterize_backward_kernel_matches_plain(cuda, n, w, h, shift):
               + g[:, 4:5] * out[:, 4:5])
     gpix5 = torch.cat([g[:, 0:4], suffix], dim=1).contiguous()
     launches = tras.rasterize_tiles_backward.kernel_launches
-    dk = tras.rasterize_tiles_backward(a16, bins.tile_offsets, gpix5, ntx,
-                                       nty, s)
-    dk2 = tras.rasterize_tiles_backward(a16, bins.tile_offsets, gpix5, ntx,
-                                        nty, s)
+    dk = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, s)
+    dk2 = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, s)
     torch.cuda.synchronize()
     assert tras.rasterize_tiles_backward.kernel_launches == launches + 2
     assert torch.equal(dk, dk2)  # bit-identical
-    dp = tras.rasterize_tiles_backward_plain(a16, bins.tile_offsets, gpix5,
-                                             ntx, nty, s)
+    dp = tras.rasterize_tiles_backward_plain(a16, off, gpix5, ntx, nty, s)
+    assert float(dp[0:9].abs().max()) > 0
     scale = max(float(dp.abs().max()), 1.0)
     assert float((dk - dp).abs().max()) / scale <= 1e-4
-    assert not dk[11:].any()
+    assert not dk[9:].any()
 
 
 @pytest.mark.parametrize("n,e_cap,cols,seed,long_seg,garbage", [

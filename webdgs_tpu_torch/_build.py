@@ -44,9 +44,13 @@ SIGNATURES = {
     "webdgs_rasterize_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                              _F, _I, _P, _P),
     # attrs16, e_len, tile_offsets, gpix5, n_tiles, ntx, tile_w, tile_h,
-    # chunk, alpha_min, alpha_max, t_threshold, log_t_min, d_attrs, stream
+    # chunk, alpha_min, alpha_max, t_threshold, log_t_min, d_attrs,
+    # tile_order ((T,) int32 scratch for the launch order), stream
     "webdgs_rasterize_bwd": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                             _F, _F, _P, _P),
+                             _F, _F, _P, _P, _P),
+    # tile_w, tile_h, chunk, out (5 ints: threads, smem bytes, CTAs per
+    # SM, pixels per thread, entries per batch)
+    "webdgs_rasterize_bwd_occupancy": (_I, _I, _I, _P),
     # out, target, n_tiles, ntx, tile_w, tile_h, img_w, img_h, l1, l2,
     # ldssim, c1, c2, bg0, bg1, bg2, dpix, sums, stream
     "webdgs_tile_loss": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
@@ -108,6 +112,23 @@ def build() -> tuple[Path, str | None]:
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def build_one(src, name: str) -> tuple[Path, str]:
+    """Compile one CUDA source on its own, with the library's flags, into
+    ``_build/<name>.so``.  For measurement tools that load a variant or an
+    earlier version of a kernel beside the library; the port itself loads
+    only :func:`library`.  Returns (path, compiler log)."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
     return out, proc.stdout + proc.stderr
 
 

@@ -88,7 +88,12 @@ def _check_inputs(attrs16, tile_offsets, ntx, nty, settings):
                          "block holds 1 to 1024")
     if not 0 < settings.chunk <= _MAX_CHUNK:
         raise ValueError(f"chunk must be in [1, {_MAX_CHUNK}]")
-    # the kernel reads attrs16 through these offsets: keep them in bounds
+
+
+def _check_offsets(attrs16, tile_offsets):
+    """The forward kernel reads attrs16 through the offsets: keep them in
+    bounds.  A read back to the host; the backward kernel clamps each
+    tile's range itself and skips this."""
     lo, hi = torch.stack(torch.aminmax(tile_offsets)).tolist()
     if lo < 0 or hi > attrs16.shape[1]:
         raise ValueError(f"tile_offsets span [{lo}, {hi}], outside the "
@@ -262,6 +267,7 @@ def rasterize_tiles(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
     launches.
     """
     _check_inputs(attrs16, tile_offsets, num_tiles_x, num_tiles_y, settings)
+    _check_offsets(attrs16, tile_offsets)
     return _RasterizeTiles.apply(attrs16, tile_offsets, num_tiles_x,
                                  num_tiles_y, settings, track_ncontrib)
 
@@ -283,15 +289,18 @@ def rasterize_tiles_backward_plain(attrs16: torch.Tensor,
                                    num_tiles_y: int,
                                    settings: RenderSettings) -> torch.Tensor:
     """Plain torch version of the backward kernel, (16, E) float32: the
-    TPU kernel's chunked formulation (rasterize.py:426-494) in f32."""
+    TPU kernel's chunked formulation (rasterize.py:426-494) in f32.  Each
+    tile's range is clamped to 0 <= uo <= end <= E, as the kernel clamps
+    it."""
     dev = attrs16.device
     n_tiles = num_tiles_x * num_tiles_y
     p, k = settings.tile_px, settings.chunk
     log_t_min = math.log(settings.t_threshold)
     e_len = attrs16.shape[1]
 
-    uo = tile_offsets[:-1].to(torch.int64)
-    cnt = tile_offsets[1:].to(torch.int64) - uo
+    off = tile_offsets.to(torch.int64)
+    uo = off[:-1].clamp(0, e_len)
+    cnt = torch.maximum(off[1:], uo).clamp(max=e_len) - uo
     nch = (cnt + k - 1) // k
     pxf, pyf = _pixel_coords(num_tiles_x, n_tiles, settings, dev)
     lane = torch.arange(k, dtype=torch.int64, device=dev)
@@ -371,6 +380,9 @@ def _rasterize_tiles_backward_cuda(attrs16, tile_offsets, gpix5, ntx, nty,
     d_attrs = torch.zeros_like(attrs16)
     if n_tiles == 0:
         return d_attrs
+    # scratch for the launch order the kernel computes (heaviest tiles
+    # first, by entry count)
+    order = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.webdgs_rasterize_bwd(
@@ -378,7 +390,8 @@ def _rasterize_tiles_backward_cuda(attrs16, tile_offsets, gpix5, ntx, nty,
             gpix5.data_ptr(), n_tiles, ntx, settings.tile_w,
             settings.tile_h, settings.chunk, settings.alpha_min,
             settings.alpha_max, settings.t_threshold,
-            math.log(settings.t_threshold), d_attrs.data_ptr(), stream)
+            math.log(settings.t_threshold), d_attrs.data_ptr(),
+            order.data_ptr(), stream)
     _build.check(err, "rasterize_tiles_backward")
     rasterize_tiles_backward.kernel_launches += 1
     return d_attrs
@@ -394,9 +407,11 @@ def rasterize_tiles_backward(attrs16: torch.Tensor,
     saturated tile never reached).
 
     gpix5: (T, NUM_GPIX, P) planar pixel cotangents d(r, g, b, acc) plus
-    the per-pixel suffix term in channel GPIX_SUFFIX.
-    ``rasterize_tiles_backward.kernel_launches`` counts the CUDA kernel's
-    launches."""
+    the per-pixel suffix term in channel GPIX_SUFFIX.  Tile ranges past
+    [0, E] are clamped (by the kernel and the plain version alike), so the
+    offsets are never read back to the host: nothing here waits for the
+    device.  ``rasterize_tiles_backward.kernel_launches`` counts the CUDA
+    kernel's launches."""
     _check_inputs(attrs16, tile_offsets, num_tiles_x, num_tiles_y, settings)
     _check_gpix(gpix5, num_tiles_x * num_tiles_y, settings)
     if gpix5.device != attrs16.device:
