@@ -16,6 +16,13 @@ faster in every pairing.  ``--ablate-bwd`` also builds the copies of the
 backward kernel that BWD_VARIANTS (and, with ``--before-bwd``,
 BEFORE_BWD_VARIANTS) describe, each with one part changed, and times each
 at both shapes: timing probes of where the kernel's time goes.
+``--before-fwd PATH`` builds an earlier rasterize_fwd.cu (for example
+``git archive 217963e webdgs_tpu_torch/csrc/rasterize_fwd.cu
+webdgs_tpu_torch/csrc/splat_alpha.cuh``) and times it in turns with the
+forward kernel at its three shapes (bench frame, 1M frame, densify view):
+all 8 output channels must be bit-identical to it and this one faster in
+every pairing.  ``--ablate-fwd`` times the copies of the forward kernel
+that FWD_VARIANTS describe at the bench and 1M frames.
 
 Phases (any failure raises, and the script exits non-zero with no result):
   1. device: CUDA must be available; prints the card's name and power limit;
@@ -27,7 +34,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
      importance kernel at the bench scene's 400x300 metric view (equal to
      its plain version on every slot), with both times, each kernel since
      the first slice run twice and required bit-identical, and the bound
-     (bytes or operations) this run's inputs need; the segment sum also
+     (bytes or operations) this run's inputs need; the forward raster also
+     queued, with its tiles' work and launch shape, and the public
+     rasterize_tiles with its autograd backward run in sync debug mode
+     "error"; the segment sum also
      beside the library call index_add_, and timed with the launch queue
      filled first as well as back to back; the backward kernel also queued,
      with its tiles' entry counts and the entries they visit before
@@ -41,12 +51,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
      render, capacity 1.2x the observed entries), 20 train_steps through
      all five kernels (every counter reset just before and must grow),
      finite parameters and loss, one step's synchronizing calls tallied
-     by line (none may come from the backward raster), one step from one
+     by line (none may come from ops/rasterize.py), one step from one
      state twice giving bit-identical parameters, and a small step on the
      card matching the CPU;
   6. realistic size: one frame and 3 train steps of 1M Gaussians at
-     sh_deg 3, 1920x1080, and the backward kernel against its plain
-     version at that step's inputs;
+     sh_deg 3, 1920x1080, and the forward and backward kernels against
+     their plain versions at that frame's and step's inputs;
   7. server: a view-mode ViewerServer on 127.0.0.1 answers 3 JPEG frames,
      a control post and /stats over HTTP;
   8. the entry point: ``python -m webdgs_tpu_torch train --no-densify`` on
@@ -57,8 +67,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      just before and the importance and segment-sum counters must grow;
      clone, split and prune each > 0; capacity growth; finite parameters;
      the synchronizing calls of each event counted, none of them from the
-     segment sum), the importance kernel equals its plain version on every
-     slot of one 960x540 metric view of the post-event state and the
+     segment sum or the raster wrappers), the forward kernel matches and
+     the importance kernel equals its plain version on every slot of one
+     960x540 metric view of the post-event state and the
      one-row segment sum of its counts matches its plain version there,
      and a small event on the card matches the same event on the CPU;
  10. ``train`` with densification and ``export`` on the synthetic dataset:
@@ -88,6 +99,10 @@ import numpy as np
 
 RAST_ATOL = 3e-4  # rgb / acc / T, tests/test_render_forward.py:65-68
 NC_MISMATCH = 0.005  # n_contrib, tests/test_render_forward.py:69-71
+# a threshold tie: a pixel whose last contributor differs between two
+# correct forwards stopped, in the one that stopped first, at a
+# transmittance this close (relative) to t_threshold
+TIE_RTOL = 1e-5
 LOSS_ATOL = 1e-5  # tile-loss dpix; its metric sums within rtol 1e-5
 BWD_TOL = 1e-4  # backward raster, scale-normalised (test_gradients.py:82)
 SEGSUM_TOL = 1e-5  # segment sum, scale-normalised
@@ -417,6 +432,72 @@ def load_bwd(so_path):
     return run
 
 
+def load_fwd(so_path):
+    """A library holding ``webdgs_rasterize_fwd``, loaded on its own: this
+    checkout's C interface where the library exports
+    ``webdgs_rasterize_fwd_occupancy``, else that of commits 6e479fc to
+    217963e (no tile order).  Returns a function of (attrs16, tile_offsets,
+    ntx, nty, settings) that runs it as the port's wrapper does, n_contrib
+    tracked.  Its ``ctas_per_sm`` is a function of the settings with this
+    checkout's interface, else None."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    lib = ctypes.CDLL(str(so_path))
+    current = hasattr(lib, "webdgs_rasterize_fwd_occupancy")
+    fn = lib.webdgs_rasterize_fwd
+    argtypes = _build.SIGNATURES["webdgs_rasterize_fwd"]
+    fn.argtypes = argtypes if current else argtypes[:-2] + argtypes[-1:]
+    fn.restype = ctypes.c_int
+
+    def run(attrs16, toff, ntx, nty, settings):
+        out = torch.empty((ntx * nty, 8, settings.tile_px),
+                          dtype=torch.float32, device=attrs16.device)
+        args = [attrs16.data_ptr(), attrs16.shape[1], toff.data_ptr(),
+                ntx * nty, ntx, settings.tile_w, settings.tile_h,
+                settings.chunk, settings.alpha_min, settings.alpha_max,
+                settings.t_threshold, math.log(settings.t_threshold), 1,
+                out.data_ptr()]
+        order = torch.empty((ntx * nty,), dtype=torch.int32,
+                            device=attrs16.device)
+        if current:
+            args.append(order.data_ptr())
+        err = fn(*args, torch.cuda.current_stream(attrs16.device).cuda_stream)
+        check(err == 0, f"{so_path}: CUDA error {err} at launch")
+        return out
+
+    def ctas_per_sm(settings) -> int:
+        out = (ctypes.c_int * 4)()
+        occ = lib.webdgs_rasterize_fwd_occupancy
+        occ.argtypes = _build.SIGNATURES["webdgs_rasterize_fwd_occupancy"]
+        check(occ(settings.tile_w, settings.tile_h, settings.chunk, out) == 0,
+              f"{so_path}: occupancy query")
+        return out[2]
+    run.ctas_per_sm = ctas_per_sm if current else None
+    return run
+
+
+# --ablate-fwd: copies of the forward kernel's source with one part
+# changed, as BWD_VARIANTS below (timing probes; every copy keeps the
+# function, so each is also compared with the kernel bit for bit).  Of
+# this checkout's csrc/rasterize_fwd.cu:
+FWD_VARIANTS = {
+    "no_box_skip": ((
+        "if (!(fabsf(dx) <= c89ab.y && fabsf(dy) <= c89ab.z)) continue;",
+        ""),),
+    "index_order": (("const int t = order[blockIdx.x];",
+                     "const int t = blockIdx.x;"),),
+    # wait for the next chunk's copies too before computing this one: no
+    # overlap of copy and compute
+    "no_double_buffer": (("cp_async_wait<1>();", "cp_async_wait<0>();"),),
+    "pixels_2": (("constexpr int kR = 4;", "constexpr int kR = 2;"),),
+    "pixels_1": (("constexpr int kR = 4;", "constexpr int kR = 1;"),),
+    "rows_of_32": (
+        ("const bool blocked = tile_w % 8 == 0 && tile_h % 4 == 0;",
+         "const bool blocked = false;"),),
+}
+
+
 # --ablate-bwd: copies of a backward kernel's source with one part changed
 # by text substitution, built beside it and timed on its inputs.  Each is a
 # timing probe, not the function: the time a copy saves is the share of
@@ -458,40 +539,172 @@ BEFORE_BWD_VARIANTS = {
 }
 
 
-def build_bwd_variants(jobs) -> dict:
-    """Build backward kernels beside the library, every nvcc call started
-    at once.  ``jobs``: (name, source, ((text, replacement), ...)); a
-    source with substitutions is written with them into the build
-    directory first.  Returns name -> (the function load_bwd gives,
-    registers per thread of its kernels' largest)."""
+# the raster kernels that build_variants builds copies of: kind -> (stem
+# of the built file, loader)
+VARIANT_KINDS = {"fwd": ("rasterize_fwd", load_fwd),
+                 "bwd": ("rasterize_bwd", load_bwd)}
+
+
+def build_variants(jobs) -> dict:
+    """Build raster kernels beside the library, every nvcc call started at
+    once.  ``jobs``: (kind, name, source, ((text, replacement), ...)), kind
+    "fwd" or "bwd"; a source with substitutions is written with them into
+    the build directory first.  Returns (kind, name) -> (the function
+    load_fwd or load_bwd gives, registers per thread of its kernels'
+    largest)."""
     import concurrent.futures
     from pathlib import Path
     from webdgs_tpu_torch import _build
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {}
-    for name, src, subs in jobs:
-        paths[name] = Path(src)
+    for kind, name, src, subs in jobs:
+        key, stem = (kind, name), VARIANT_KINDS[kind][0]
+        paths[key] = Path(src)
         if subs:
-            body = paths[name].read_text()
+            body = paths[key].read_text()
             for old, new in subs:
                 check(old in body, f"variant {name}: {old!r} is not in {src}")
                 body = body.replace(old, new)
-            paths[name] = out_dir / f"rasterize_bwd_{name}.cu"
-            paths[name].write_text(body)
+            paths[key] = out_dir / f"{stem}_{name}.cu"
+            paths[key].write_text(body)
     with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
         built = dict(zip(paths, pool.map(
-            lambda n: _build.build_one(paths[n], f"rasterize_bwd_{n}"),
-            paths)))
-    return {name: (load_bwd(so), max(
+            lambda k: _build.build_one(
+                paths[k], f"{VARIANT_KINDS[k[0]][0]}_{k[1]}"), paths)))
+    return {key: (VARIANT_KINDS[key[0]][1](so), max(
         int(r) for r in re.findall(r"Used (\d+) registers", log)))
-        for name, (so, log) in built.items()}
+        for key, (so, log) in built.items()}
 
 
 # set by --before-bwd: an earlier backward kernel, timed beside this one
 BEFORE_BWD = None
 # set by --ablate-bwd: name -> (variant, its registers), timed beside it
 BWD_ABLATIONS: dict = {}
+# set by --before-fwd and --ablate-fwd: the same for the forward kernel
+BEFORE_FWD = None
+FWD_ABLATIONS: dict = {}
+
+
+def forward_check(label: str, attrs16, tile_offsets, ntx: int, nty: int,
+                  settings, iters: int, plain_iters: int,
+                  ablate: bool = False, ties: bool = False) -> dict:
+    """The forward kernel against ``rasterize_tiles_plain`` on one frame's
+    inputs: rgb, acc and T within RAST_ATOL, n_contrib mismatch within
+    NC_MISMATCH, two runs bit-identical.  With ``ties``, a pixel may exceed
+    RAST_ATOL only where the two stop at different last contributors at a
+    threshold tie (TIE_RTOL): the kernel sums log T entry by entry, the
+    plain version by chunk prefix sums, and at millions of pixels a few
+    transmittances land within rounding of t_threshold, where the two
+    orders decide differently.  Times the kernel back to back
+    (in turns with its plain version) and with the launch queue filled
+    first, and gives the bound from the pairs these inputs make it
+    evaluate, the tiles' work and the launch shape.  With BEFORE_FWD, the
+    earlier kernel too, on the same inputs, in turns with this one: all 8
+    channels must be bit-identical and this one faster in every pairing.
+    With ``ablate``, each copy in FWD_ABLATIONS, timed."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    from webdgs_tpu_torch.ops import rasterize
+    args = (attrs16, tile_offsets, ntx, nty, settings)
+    rk = rasterize.rasterize_tiles(*args)
+    rk2 = rasterize.rasterize_tiles(*args)
+    rp = rasterize.rasterize_tiles_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(rk, rk2), f"rasterize_tiles ({label}) is not "
+          "bit-identical")
+    diff = (rk[:, 0:5] - rp[:, 0:5]).abs().amax(dim=1)  # (T, P)
+    flip = rk[:, 5] != rp[:, 5]
+    err = float(diff.max())
+    nc_mis = float(flip.float().mean())
+    over = diff > RAST_ATOL
+    # where they stop at different contributors, the transmittance of the
+    # one that stopped first
+    t_first = torch.where(rk[:, 5] < rp[:, 5], rk[:, 4], rp[:, 4])
+    tie = flip & ((t_first - settings.t_threshold).abs()
+                  <= TIE_RTOL * settings.t_threshold)
+    n_over, n_ties = int(over.sum()), int((over & tie).sum())
+    err_rest = float(diff[~(over & tie)].max())
+    check(err <= RAST_ATOL or (ties and err_rest <= RAST_ATOL),
+          f"rasterize_tiles ({label}) max abs err {err}: {n_over} pixels "
+          f"over {RAST_ATOL}, {n_ties} of them threshold ties; the largest "
+          f"error elsewhere {err_rest}")
+    check(nc_mis <= NC_MISMATCH,
+          f"rasterize_tiles ({label}) n_contrib mismatch {nc_mis}")
+    check(float(rk[:, 3].max()) > 0.5 and not rk[:, 6:].any(),
+          f"rasterize_tiles ({label}): empty frame or spare channels set")
+    del rk2, rp
+
+    def kernel():
+        return rasterize._rasterize_tiles_cuda(*args, True)
+    ms, plain_ms = time_pair(
+        kernel, lambda: rasterize.rasterize_tiles_plain(*args), iters,
+        plain_iters)
+    dev_ms = queued_ms(kernel, iters)
+    pairs = evaluated_pairs(rk, tile_offsets, settings)
+    e_len, n_tiles = attrs16.shape[1], ntx * nty
+    # 11 attribute rows + offsets in, (T, 8, P) tiles out
+    bound = bound_ms(4 * (11 * e_len + n_tiles + 1
+                          + 8 * n_tiles * settings.tile_px),
+                     FWD_OPS_PER_PAIR * pairs)
+    shape = (ctypes.c_int * 4)()
+    _build.check(_build.library().webdgs_rasterize_fwd_occupancy(
+        settings.tile_w, settings.tile_h, settings.chunk, shape),
+        "webdgs_rasterize_fwd_occupancy")
+    launch = dict(zip(("threads", "smem_bytes", "ctas_per_sm",
+                       "pixels_per_thread"), shape))
+    work = tile_work(rk, tile_offsets, settings)
+    res = {"err": err, "err_outside_ties": err_rest, "tie_pixels": n_ties,
+           "nc_mismatch": nc_mis, "ms": ms, "plain_ms": plain_ms,
+           "device_ms": dev_ms, "bound": bound, "pairs": pairs,
+           "slots": e_len, "tiles": n_tiles, "launch": launch,
+           "tile_work": work}
+    print(f"[kernels] rasterize_tiles {label}: {e_len} slots, {n_tiles} "
+          f"tiles (entries per tile max {work['count']['max']:.0f}, mean "
+          f"{work['count']['mean']:.1f}, p99 {work['count']['p99']:.0f}; "
+          f"visited before saturation max {work['visited']['max']:.0f}, "
+          f"mean {work['visited']['mean']:.1f}, p99 "
+          f"{work['visited']['p99']:.0f}), {pairs} (pixel, entry) pairs; "
+          f"launch {launch}; max abs err {err:.3e}, {n_over} pixels over "
+          f"{RAST_ATOL} ({n_ties} threshold ties), {err_rest:.3e} outside "
+          f"them; n_contrib mismatch {nc_mis:.3e} (<= {NC_MISMATCH}); "
+          f"bit-identical repeat; kernel {ms:.4f} ms, queued {dev_ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms "
+          f"({bound[1]})", flush=True)
+    if BEFORE_FWD is not None:
+        def before():
+            return BEFORE_FWD(*args)
+        same = torch.equal(before(), rk)
+        # in turns: new, before, new, before
+        b2b = [cuda_ms(f, iters) for f in (kernel, before, kernel, before)]
+        queued = [queued_ms(f, iters) for f in (kernel, before, kernel,
+                                                before)]
+        res["before"] = {"bit_identical": same, "ms": b2b[1::2],
+                         "device_ms": queued[1::2], "new_ms": b2b[0::2],
+                         "new_device_ms": queued[0::2]}
+        print(f"[kernels] rasterize_tiles {label}, the earlier kernel on the "
+              f"same inputs: all 8 channels bit-identical {same}; back to "
+              f"back {b2b[1]:.4f} / {b2b[3]:.4f} ms (this one {b2b[0]:.4f} / "
+              f"{b2b[2]:.4f}); queued {queued[1]:.4f} / {queued[3]:.4f} ms "
+              f"(this one {queued[0]:.4f} / {queued[2]:.4f})", flush=True)
+        check(same, f"rasterize_tiles ({label}) differs from the earlier "
+              "kernel")
+        check(max(b2b[0::2]) < min(b2b[1::2]) and
+              max(queued[0::2]) < min(queued[1::2]),
+              f"rasterize_tiles ({label}) is not faster than the earlier "
+              f"kernel: {res['before']}")
+    for name, (variant, regs) in (FWD_ABLATIONS.items() if ablate else ()):
+        def run_variant(variant=variant):
+            return variant(*args)
+        same = torch.equal(run_variant(), rk)
+        v_ms = cuda_ms(run_variant, iters)
+        v_dev = queued_ms(run_variant, iters)
+        ctas = variant.ctas_per_sm and variant.ctas_per_sm(settings)
+        print(f"[kernels] rasterize_tiles {label}, variant {name} (a timing "
+              f"probe): {regs} registers, {ctas} CTAs per SM; bit-identical "
+              f"{same}; {v_ms:.4f} ms, queued {v_dev:.4f} ms", flush=True)
+    return res
 
 
 def backward_step_inputs(scene, cam, w: int, h: int, settings, cap: int,
@@ -884,8 +1097,9 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
         check(sum(ev["syncs"].values()) > 0, "no synchronizing call seen")
         # the segment sum reads nothing back on this path
         seg_syncs = {k: v for k, v in ev["syncs"].items()
-                     if "ops/segsum.py" in k}
-        check(not seg_syncs, f"the segment sum synchronized: {seg_syncs}")
+                     if "ops/segsum.py" in k or "ops/rasterize.py" in k}
+        check(not seg_syncs, f"the segment sum or the raster wrappers "
+              f"synchronized: {seg_syncs}")
         print(f"[densify] {n} sh3 {W}x{H}, event {i + 1} at iteration "
               f"{ev['iteration']}: {ev['ms']:.2f} ms host (synchronized); "
               f"points {ev['points'][0]} -> {ev['points'][1]}; capacity "
@@ -956,6 +1170,10 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     # gives it: this metric view of the post-event state
     margs, n_valid, mbins = metric_view_inputs(
         sc, mcam, tgt, mw, mh, cfg.densify.metric_threshold, s1m)
+    # the forward kernel at the same view: each event launches it once per
+    # view
+    fwd = forward_check(f"{mw}x{mh} densify view", margs[0], margs[1],
+                        margs[3], margs[4], s1m, 10, 1, ties=True)
     imp = importance_check(f"{mw}x{mh} densify view", margs, n_valid, 1)
     # the one-row segment sum an event launches once per view, on this
     # view's importance counts
@@ -967,7 +1185,7 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     del trainer, sc, margs, mbins, view_counts
     torch.cuda.empty_cache()
     return {"launches": launches, "events": events, "peak_gb": peak_gb,
-            "importance": imp, "segsum": seg}
+            "importance": imp, "segsum": seg, "forward": fwd}
 
 
 def small_event_phase(dev, settings) -> None:
@@ -1171,6 +1389,14 @@ def main(argv: list[str] | None = None) -> int:
                     help="also time BWD_VARIANTS of the backward kernel "
                     "(and BEFORE_BWD_VARIANTS of the --before-bwd source) "
                     "at both of its shapes")
+    ap.add_argument("--before-fwd", metavar="RASTERIZE_FWD_CU",
+                    help="an earlier csrc/rasterize_fwd.cu (the interface "
+                    "of commits 6e479fc to 217963e) to time beside the "
+                    "forward kernel at its three shapes; all 8 channels "
+                    "must be bit-identical")
+    ap.add_argument("--ablate-fwd", action="store_true",
+                    help="also time FWD_VARIANTS of the forward kernel at "
+                    "the bench and 1M frames")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1178,7 +1404,6 @@ def main(argv: list[str] | None = None) -> int:
 
     # --- 1. device ---
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | devices {torch.cuda.device_count()}",
           flush=True)
@@ -1200,23 +1425,36 @@ def main(argv: list[str] | None = None) -> int:
         BEFORE_SEGSUM = build_before_segsum(args.before_segsum)
         print(f"[build] the earlier segment-sum kernel {args.before_segsum}",
               flush=True)
-    jobs = [("before", args.before_bwd, ())] if args.before_bwd else []
+    jobs = [("bwd", "before", args.before_bwd, ())] if args.before_bwd \
+        else []
     if args.ablate_bwd:
-        jobs += [(n, _build.CSRC / "rasterize_bwd.cu", subs)
+        jobs += [("bwd", n, _build.CSRC / "rasterize_bwd.cu", subs)
                  for n, subs in BWD_VARIANTS.items()]
         if args.before_bwd:
-            jobs += [(f"before_{n}", args.before_bwd, subs)
+            jobs += [("bwd", f"before_{n}", args.before_bwd, subs)
                      for n, subs in BEFORE_BWD_VARIANTS.items()]
+    if args.before_fwd:
+        jobs.append(("fwd", "before", args.before_fwd, ()))
+    if args.ablate_fwd:
+        jobs += [("fwd", n, _build.CSRC / "rasterize_fwd.cu", subs)
+                 for n, subs in FWD_VARIANTS.items()]
     if jobs:
-        global BEFORE_BWD
-        BWD_ABLATIONS.update(build_bwd_variants(jobs))
-        if args.before_bwd:
-            BEFORE_BWD, regs = BWD_ABLATIONS.pop("before")
-            print(f"[build] the earlier backward kernel {args.before_bwd}: "
-                  f"{regs} registers", flush=True)
-        if args.ablate_bwd:
-            print(f"[build] backward variants: {sorted(BWD_ABLATIONS)}",
-                  flush=True)
+        global BEFORE_BWD, BEFORE_FWD
+        built = build_variants(jobs)
+        for side, table, path in (("bwd", BWD_ABLATIONS, args.before_bwd),
+                                  ("fwd", FWD_ABLATIONS, args.before_fwd)):
+            if path:
+                before, regs = built.pop((side, "before"))
+                print(f"[build] the earlier {side} raster kernel {path}: "
+                      f"{regs} registers", flush=True)
+                if side == "bwd":
+                    BEFORE_BWD = before
+                else:
+                    BEFORE_FWD = before
+            table.update({n: v for (k, n), v in built.items() if k == side})
+            if table:
+                print(f"[build] {side} raster variants: {sorted(table)}",
+                      flush=True)
 
     import torch.nn.functional as F
     from webdgs_tpu_torch.config import RenderSettings, quantize_budget
@@ -1268,35 +1506,13 @@ def main(argv: list[str] | None = None) -> int:
           f"kernel {expand_ms:.4f} ms, plain {expand_plain_ms:.4f} ms",
           flush=True)
 
-    off = bins.tile_offsets
-    rk = rasterize.rasterize_tiles(attrs16, off, ntx, nty, settings)
-    rp = rasterize.rasterize_tiles_plain(attrs16, off, ntx, nty, settings)
-    torch.cuda.synchronize()
-    rast_err = float((rk[:, 0:5] - rp[:, 0:5]).abs().max())
-    nc_mis = float((rk[:, 5] != rp[:, 5]).float().mean())
-    check(rast_err <= RAST_ATOL, f"rasterize_tiles max abs err {rast_err}")
-    check(nc_mis <= NC_MISMATCH, f"n_contrib mismatch {nc_mis}")
-    check(float(rk[:, 3].max()) > 0.5, "bench frame rasterized empty")
-    # kernels are timed through their launch functions: the public
-    # wrappers' input checks read bounds back to the host (a sync)
-    rast_ms, rast_plain_ms = time_pair(
-        lambda: rasterize._rasterize_tiles_cuda(attrs16, off, ntx, nty,
-                                                settings, True),
-        lambda: rasterize.rasterize_tiles_plain(attrs16, off, ntx, nty,
-                                                settings), 20, 3)
-    pairs = evaluated_pairs(rk, off, settings)
+    # the forward kernel at the viewer's capacity for the bench frame
+    fwd = forward_check(f"{w}x{h} bench frame", attrs16, bins.tile_offsets,
+                        ntx, nty, settings, 20, 3, ablate=True)
     n_tiles, npx = ntx * nty, settings.tile_px
     # expand: words + counts in, (5, E) words + (E,) ids out
     expand_bound = bound_ms(4 * (6 * scene.capacity + 6 * e_cap), 0)
-    # forward: 11 attribute rows + offsets in, (T, 8, P) tiles out
-    rast_bound = bound_ms(4 * (11 * e_cap + n_tiles + 1 + 8 * n_tiles * npx),
-                          FWD_OPS_PER_PAIR * pairs)
-    print(f"[kernels] rasterize_tiles: max abs err {rast_err:.3e} (<= "
-          f"{RAST_ATOL}), n_contrib mismatch {nc_mis:.5f} (<= "
-          f"{NC_MISMATCH}); kernel {rast_ms:.4f} ms, plain "
-          f"{rast_plain_ms:.4f} ms; {pairs} (pixel, entry) pairs evaluated; "
-          f"bound {rast_bound[0]:.4f} ms ({rast_bound[1]})", flush=True)
-    del ek, ep, rk, rp
+    del ek, ep
 
     # --- 3b. the training kernels at the bench training step's inputs ---
     # capacity as bench.py sizes it: 1.2x the observed entries
@@ -1359,22 +1575,26 @@ def main(argv: list[str] | None = None) -> int:
         settings, 20, 1)
     bk = rasterize.rasterize_tiles_backward(t16, toff, gpix5, ntx, nty,
                                             settings)
-    # the backward's whole path, autograd included, never waits for the
-    # device: in sync debug mode "error" a synchronizing call raises
+    # the raster's whole path, the public forward wrapper and autograd's
+    # backward included, never waits for the device: in sync debug mode
+    # "error" a synchronizing call raises
     a16g = t16.detach().requires_grad_(True)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        fwd_g = rasterize._RasterizeTiles.apply(a16g, toff, ntx, nty,
-                                                settings, False)
+        fwd_g = rasterize.rasterize_tiles(a16g, toff, ntx, nty, settings,
+                                          track_ncontrib=False)
         (g_auto,) = torch.autograd.grad(fwd_g, a16g, dk)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     check(torch.equal(g_auto, bk), "the backward through autograd differs "
           "from rasterize_tiles_backward")
-    print("[kernels] rasterize_tiles_backward: forward kernel + autograd "
-          "backward ran in sync debug mode \"error\" (no synchronizing "
-          "call) and equal the wrapper's rows bit for bit", flush=True)
+    check(torch.equal(fwd_g.detach(), tout), "the public forward differs "
+          "from the training step's tiles")
+    print("[kernels] rasterize_tiles + autograd backward ran in sync debug "
+          "mode \"error\" (no synchronizing call); the forward equals the "
+          "step's tiles and the gradient the wrapper's rows bit for bit",
+          flush=True)
 
     seg = segsum_check(f"{w}x{h} training step", bk, tbins.gauss_counts,
                        tbins.entry_source, tbins.entry_valid,
@@ -1474,9 +1694,12 @@ def main(argv: list[str] | None = None) -> int:
                  if k.rsplit(":", 1)[0] == f and a <= int(k.rsplit(":", 1)[1])
                  <= b}
     check(not bwd_syncs, f"the backward raster synchronized: {bwd_syncs}")
+    rast_syncs = {k: v for k, v in step_syncs.items()
+                  if "ops/rasterize.py" in k}
+    check(not rast_syncs, f"ops/rasterize.py synchronized: {rast_syncs}")
     print(f"[train] one bench train_step waits on the device "
-          f"{sum(step_syncs.values())} times {step_syncs}; none from the "
-          f"backward raster", flush=True)
+          f"{sum(step_syncs.values())} times {step_syncs}; none from "
+          f"ops/rasterize.py", flush=True)
     print(f"[train] bench 100k 800x600, 20 train_steps after 2 warm-up: "
           f"{step_ms:.2f} "
           f"ms/step, {1e3 / step_ms:.2f} it/s; loss "
@@ -1560,6 +1783,10 @@ def main(argv: list[str] | None = None) -> int:
     # the backward kernel at this step's inputs
     inp1m = backward_step_inputs(big, cam1m, 1920, 1080, s1m, cap1m,
                                  target1m)
+    # the forward kernel at the same frame (the step's capacity)
+    fwd1m = forward_check("1M sh3 1920x1080 frame", inp1m["attrs16"],
+                          inp1m["tile_offsets"], inp1m["ntx"], inp1m["nty"],
+                          s1m, 10, 1, ablate=True, ties=True)
     bwd1m = backward_check("1M sh3 1920x1080 training step", inp1m, s1m, 5,
                            1)
     del inp1m
@@ -1665,6 +1892,18 @@ def main(argv: list[str] | None = None) -> int:
     dlaunch = densify_res["launches"]
     imp = densify_res["importance"]
     dseg = densify_res["segsum"]
+    dfwd = densify_res["forward"]
+
+    def reading(r):
+        # one forward_check reading for the kernels line
+        return {"max_abs_err": r["err"],
+                "max_abs_err_outside_ties": r["err_outside_ties"],
+                "tie_pixels": r["tie_pixels"], "nc_mismatch": r["nc_mismatch"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None, "device_ms": r["device_ms"],
+                "pairs": r["pairs"], "tile_work": r["tile_work"],
+                "before": r.get("before")}
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, lib_ms,
               **extra):
@@ -1683,10 +1922,19 @@ def main(argv: list[str] | None = None) -> int:
               "webdgs_tpu/ops/expand.py:63", expand_err, expand_ms,
               expand_plain_ms, expand_bound, None,
               launches_viewer=launches["expand_fields"]),
+        # at the bench frame; the 1M frame and the densify view beside it
         entry("rasterize_tiles", "webdgs_tpu_torch/csrc/rasterize_fwd.cu",
-              "webdgs_tpu/ops/rasterize.py:239", rast_err, rast_ms,
-              rast_plain_ms, rast_bound, None,
-              launches_viewer=launches["rasterize_tiles"]),
+              "webdgs_tpu/ops/rasterize.py:239", fwd["err"], fwd["ms"],
+              fwd["plain_ms"], fwd["bound"], None,
+              launches_viewer=launches["rasterize_tiles"],
+              # a step launches it once, beside the backward raster
+              launches_per_event=(dlaunch["rasterize_tiles"]
+                                  - dlaunch["rasterize_tiles_backward"])
+              // len(densify_res["events"]),
+              nc_mismatch=fwd["nc_mismatch"], device_ms=fwd["device_ms"],
+              launch=fwd["launch"], tile_work=fwd["tile_work"],
+              before=fwd.get("before"), frame_1m=reading(fwd1m),
+              densify_view=reading(dfwd)),
         entry("tile_loss", "webdgs_tpu_torch/csrc/tile_loss.cu",
               "webdgs_tpu/ops/tile_loss.py:106", loss_err, loss_ms,
               loss_plain_ms, loss_bound, None),
@@ -1741,7 +1989,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -122,20 +122,53 @@ def test_backward_clamps_out_of_range_offsets(fault):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_rasterize_backward_reads_nothing_back(monkeypatch):
-    """The backward wrapper never reads the offsets back to the host (the
-    kernel clamps each range itself); the forward still checks them."""
+@pytest.mark.parametrize("wrapper", ["forward", "backward"])
+def test_rasterize_backward_reads_nothing_back(monkeypatch, wrapper):
+    """Neither raster wrapper reads the offsets (or anything else) back to
+    the host: each kernel clamps its tile ranges itself.  Every host read
+    of a tensor raises while the wrapper runs, except inside the plain
+    version that stands in for the kernel on the CPU; the result is the
+    plain version's, bit for bit."""
     a16, off, gpix5, ntx, nty, st = _backward_inputs(3)
-    want = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, st)
+    if wrapper == "forward":
+        name, args = "rasterize_tiles_plain", (a16, off, ntx, nty, st)
+        public = tras.rasterize_tiles
+    else:
+        name = "rasterize_tiles_backward_plain"
+        args = (a16, off, gpix5, ntx, nty, st)
+        public = tras.rasterize_tiles_backward
+    plain = getattr(tras, name)
+    want = plain(*args)
+    armed = [True]
 
-    def read_back(*args):
-        raise AssertionError("offsets read back")
+    def guard(method):
+        orig = getattr(torch.Tensor, method)
 
-    monkeypatch.setattr(tras, "_check_offsets", read_back)
-    got = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, st)
+        def read(self, *a, **k):
+            if armed[0]:
+                raise AssertionError(f"host read: Tensor.{method}")
+            return orig(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, method, read)
+
+    def unguarded_plain(*a, **k):
+        armed[0] = False
+        try:
+            return plain(*a, **k)
+        finally:
+            armed[0] = True
+
+    for method in ("tolist", "item", "__bool__", "__int__", "__float__",
+                   "__index__", "numpy"):
+        guard(method)
+    monkeypatch.setattr(tras, name, unguarded_plain)
+    got = public(*args)
+    armed[0] = False
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(AssertionError, match="offsets read back"):
-        tras.rasterize_tiles(a16, off, ntx, nty, st)
+    # the guard does catch a read
+    armed[0] = True
+    with pytest.raises(AssertionError, match="host read"):
+        off.tolist()
+    armed[0] = False
 
 
 def _segments(n, e_cap, seed):

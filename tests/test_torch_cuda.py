@@ -64,23 +64,60 @@ def test_expand_kernel_matches_plain(cuda, n, e_cap, seed):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("n,w,h", [(300, 96, 80), (20_000, 640, 480)])
-def test_rasterize_kernel_matches_plain(cuda, n, w, h):
+@pytest.mark.parametrize("n,w,h,shift,case", [
+    (300, 96, 80, 0.0, "plain"), (20_000, 640, 480, 0.0, "plain"),
+    # ranges of several chunks whose counts are multiples of neither 4
+    # nor the chunk (faint splats: few pixels saturate)
+    (20_000, 96, 80, -3.0, "multichunk"),
+    # every range starts 3 slots later: no tile is 16-byte aligned
+    (5000, 320, 240, 0.0, "unaligned"),
+    # nearly opaque and dense: whole warps saturate within a few entries
+    (20_000, 96, 80, 6.0, "plain"),
+    # offsets reaching past E (and one below 0): clamped, no fault
+    (5000, 320, 240, 0.0, "past_end")])
+def test_rasterize_kernel_matches_plain(cuda, n, w, h, shift, case):
     s = RenderSettings()
-    ts = _scene(n, seed=7, spread=2.0).to(cuda)
+    ts = _scene(n, seed=7, spread=2.0)
+    ts.opacity_logits += shift
+    ts = ts.to(cuda)
     cam = default_camera(w, h, position=(0.0, 0.0, -6.0), device=cuda)
     attrs, aux = project_gaussians(ts.params(), ts.alive, cam, w, h, 0, s)
     bins = bin_splats(aux, w, h, s, attrs=attrs)
     a16 = tras.pack_entry_attrs(attrs, bins.entry_gauss, bins.entry_valid)
     ntx, nty = -(-w // s.tile_w), -(-h // s.tile_h)
+    off = bins.tile_offsets
+    cnt = (off[1:] - off[:-1]).cpu()
+    if case == "multichunk":
+        assert int(cnt.max()) > 2 * s.chunk
+        assert bool(((cnt > s.chunk) & (cnt % 4 != 0)).any())
+    elif case == "unaligned":
+        a16 = torch.cat([torch.zeros((16, 3), device=cuda), a16],
+                        dim=1).contiguous()
+        off = off + 3
+    elif case == "past_end":
+        e_len = a16.shape[1]
+        off = off.clone()
+        off[0] = -5
+        off[-3:] = torch.tensor([e_len + 7, e_len + 100, 2 ** 30],
+                                dtype=torch.int32, device=cuda)
     launches = tras.rasterize_tiles.kernel_launches
-    got = tras.rasterize_tiles(a16, bins.tile_offsets, ntx, nty, s)
+    got = tras.rasterize_tiles(a16, off, ntx, nty, s)
+    got2 = tras.rasterize_tiles(a16, off, ntx, nty, s)
+    bare = tras.rasterize_tiles(a16, off, ntx, nty, s, track_ncontrib=False)
     torch.cuda.synchronize()
-    assert tras.rasterize_tiles.kernel_launches == launches + 1
-    want = tras.rasterize_tiles_plain(a16, bins.tile_offsets, ntx, nty, s)
+    assert tras.rasterize_tiles.kernel_launches == launches + 3
+    assert torch.equal(got, got2)  # bit-identical
+    # without n_contrib: channel 5 reads 0, the others are unchanged
+    assert not bare[:, tras.OUT_NCONTRIB].any()
+    assert torch.equal(bare[:, 0:5], got[:, 0:5])
+    want = tras.rasterize_tiles_plain(a16, off, ntx, nty, s)
     got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert want[:, 3].max() > 0.1
     assert np.abs(got[:, 0:5] - want[:, 0:5]).max() <= 3e-4
     assert np.mean(got[:, 5] != want[:, 5]) <= 0.005
+    assert not got[:, 6:].any()
+    if case == "plain" and shift > 0:
+        assert (got[:, 4] < s.t_threshold).mean() > 0.5  # saturated
 
 
 def test_render_on_cuda_matches_cpu(cuda):

@@ -111,6 +111,80 @@ def test_rasterize_saturation_early_exit():
     assert float(out[0, tras.OUT_T, center]) < 0.01
 
 
+def _splats(e, rng, x0=0.0, x1=64.0, op=(0.05, 0.3)):
+    """(16, e) random splats with centres in [x0, x1) x [0, 16) (two
+    32 x 16 tiles span x in [0, 64)): anisotropic conics, extent boxes of
+    half-width 3 / sqrt(conic diagonal)."""
+    a16 = np.zeros((16, e), np.float32)
+    a16[tras.ROW_CX] = rng.uniform(x0, x1, e)
+    a16[tras.ROW_CY] = rng.uniform(0.0, 16.0, e)
+    a16[tras.ROW_CA] = rng.uniform(0.02, 0.3, e)
+    a16[tras.ROW_CC] = rng.uniform(0.02, 0.3, e)
+    a16[tras.ROW_CB] = rng.uniform(-0.5, 0.5, e) * np.sqrt(
+        a16[tras.ROW_CA] * a16[tras.ROW_CC])
+    a16[tras.ROW_R:tras.ROW_B + 1] = rng.uniform(0, 1, (3, e))
+    a16[tras.ROW_OP] = rng.uniform(*op, e)
+    a16[tras.ROW_EX] = 3.0 / np.sqrt(a16[tras.ROW_CA])
+    a16[tras.ROW_EY] = 3.0 / np.sqrt(a16[tras.ROW_CC])
+    return a16
+
+
+def test_rasterize_plain_multichunk_unaligned_saturating_matches_jax():
+    """Two tiles whose ranges start off any chunk boundary and span 3.5
+    chunks each (chunk 128); tile 0 holds an opaque stack mid-range that
+    saturates the pixels around its centre, while faint splats keep the
+    other pixels compositing to the end of the range."""
+    rng = np.random.default_rng(21)
+    e = 1024
+    a16 = np.zeros((16, e), np.float32)
+    a16[:, 3:453] = _splats(450, rng, 0.0, 32.0)
+    a16[:, 453:903] = _splats(450, rng, 32.0, 64.0)
+    stack = slice(3 + 200, 3 + 240)  # entries 200-239 of tile 0
+    a16[tras.ROW_CX, stack] = 16.0
+    a16[tras.ROW_CY, stack] = 8.0
+    a16[tras.ROW_CA, stack] = a16[tras.ROW_CC, stack] = 0.01
+    a16[tras.ROW_CB, stack] = 0.0
+    a16[tras.ROW_OP, stack] = 0.8
+    a16[tras.ROW_EX:tras.ROW_EY + 1, stack] = 40.0
+    off = np.array([3, 453, 903], np.int32)
+    st = torch_settings()
+    assert (off[1:] - off[:-1]).min() > 3 * st.chunk
+    got = rasterize_tiles(torch.tensor(a16), torch.tensor(off), 2, 1, st)
+    want = jras.rasterize_tiles(jnp.asarray(a16), jnp.asarray(off), 2, 1,
+                                jax_settings())
+    assert_tiles_close(got, want)
+    t_final, nc = np_(got[:, tras.OUT_T]), np_(got[:, tras.OUT_NCONTRIB])
+    # the stack saturates tile 0's centre within its 40 entries...
+    center = 8 * 32 + 16
+    assert t_final[0, center] < st.t_threshold
+    assert 200 < nc[0, center] <= 240
+    # ...while pixels elsewhere composite past the third chunk
+    assert (nc > 3 * st.chunk).any() and (t_final >= st.t_threshold).any()
+
+
+@pytest.mark.parametrize("fault", ["past_end", "below_zero", "both"])
+def test_rasterize_plain_clamps_out_of_range_offsets(fault):
+    """Tile ranges reaching outside [0, E]: the plain forward gives what it
+    gives on the clamped offsets, bit for bit, as the kernel clamps them."""
+    _, bins, a16, ntx, nty = _jax_frame(300, 1, 96, 80)
+    a16, off = t_(a16), t_(bins.tile_offsets)
+    e_len = a16.shape[1]
+    bad = off.clone()
+    if fault in ("past_end", "both"):
+        bad[-3:] = torch.tensor([e_len - 5, e_len + 5, 2 ** 30],
+                                dtype=torch.int32)
+    if fault in ("below_zero", "both"):
+        bad[0:2] = torch.tensor([-7, -2], dtype=torch.int32)
+    clamped = bad.clamp(0, e_len)
+    assert not torch.equal(bad, clamped)
+    st = torch_settings()
+    want = tras.rasterize_tiles_plain(a16, clamped, ntx, nty, st)
+    got = tras.rasterize_tiles_plain(a16, bad, ntx, nty, st)
+    assert bool(torch.isfinite(got).all())
+    assert float(want[:, tras.OUT_ACC_ALPHA].max()) > 0.1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_rasterize_checks_inputs():
     a16 = torch.zeros((16, 128))
     off = torch.zeros(3, dtype=torch.int32)
@@ -127,10 +201,14 @@ def test_rasterize_checks_inputs():
         rasterize_tiles(a16, off, 2, 1, torch_settings(tile_w=128))
     with pytest.raises(ValueError):
         rasterize_tiles(a16, off, 2, 1, torch_settings(chunk=4096))
-    for bad in ([0, 5, 129], [-1, 0, 0]):  # ranges outside attrs16
-        with pytest.raises(ValueError, match="outside"):
-            rasterize_tiles(a16, torch.tensor(bad, dtype=torch.int32), 2, 1,
-                            s)
+    # ranges outside attrs16 are clamped to [0, E], as the kernel clamps
+    # them: no read back, no error, the clamped ranges' result
+    a16r = torch.tensor(_splats(128, np.random.default_rng(9)))
+    for bad in ([0, 5, 129], [-1, 0, 0]):
+        bad = torch.tensor(bad, dtype=torch.int32)
+        got = rasterize_tiles(a16r, bad, 2, 1, s)
+        want = tras.rasterize_tiles_plain(a16r, bad.clamp(0, 128), 2, 1, s)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_pack_entry_attrs_matches_jax():

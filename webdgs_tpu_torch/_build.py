@@ -40,9 +40,12 @@ SIGNATURES = {
     "webdgs_expand_fields": (_P, _P, _I, _I, _P, _P, _P),
     # attrs16, e_len, tile_offsets, n_tiles, ntx, tile_w, tile_h, chunk,
     # alpha_min, alpha_max, t_threshold, log_t_min, track_ncontrib, out,
-    # stream
+    # tile_order ((T,) int32 scratch for the launch order), stream
     "webdgs_rasterize_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                             _F, _I, _P, _P),
+                             _F, _I, _P, _P, _P),
+    # tile_w, tile_h, chunk, out (4 ints: threads, smem bytes, CTAs per
+    # SM, pixels per thread)
+    "webdgs_rasterize_fwd_occupancy": (_I, _I, _I, _P),
     # attrs16, e_len, tile_offsets, gpix5, n_tiles, ntx, tile_w, tile_h,
     # chunk, alpha_min, alpha_max, t_threshold, log_t_min, d_attrs,
     # tile_order ((T,) int32 scratch for the launch order), stream

@@ -11,10 +11,10 @@
 // forward kernel (splat_alpha.cuh), so the decisions agree with the
 // n_contrib it wrote.
 //
-// Design: one CTA per tile, one thread per pixel, as rasterize_fwd.cu.  The
-// TPU kernel's DMA windows and its read-modify-write of chunks shared with
-// the neighbouring tile have no counterpart: each CTA writes only its own
-// tile's slots of a zeroed (E,) output.  Two work bounds, as on the TPU: a
+// Design: one CTA per tile, one thread per pixel.  The TPU kernel's DMA
+// windows and its read-modify-write of chunks shared with the neighbouring
+// tile have no counterpart: each CTA writes only its own tile's slots of a
+// zeroed (E,) output.  Two work bounds, as on the TPU: a
 // tile with no flagged pixel returns at once (one __syncthreads_or), and
 // the chunk loop stops at the largest flagged n_contrib (a block max in
 // shared memory).  Per entry, each warp counts its pixels' masks with

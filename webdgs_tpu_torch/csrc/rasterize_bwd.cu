@@ -90,6 +90,7 @@
 #include <cuda_runtime.h>
 
 #include "splat_alpha.cuh"
+#include "tile_stage.cuh"
 
 namespace {
 
@@ -102,39 +103,9 @@ static_assert((1 << kLogB) == kB && kB <= 32, "kB: a power of 2 <= 32");
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowCx = 0, kRowCy = 1, kRowCa = 2, kRowCb = 3, kRowCc = 4;
 constexpr int kRowR = 5, kRowG = 6, kRowB = 7, kRowOp = 8;
-constexpr int kUsedRows = 11;  // cx .. ey
-constexpr int kRec = 12;       // floats per staged record (one pad)
 constexpr int kNumGpix = 5;    // d r, d g, d b, d acc, suffix
 constexpr int kNumSums = 9;
 constexpr int kMaxSub = 128;   // entries per cross-warp pass
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Entries [base, base + n) of the (16, E) rows into records rec[j * kRec +
-// row]: consecutive threads read consecutive slots of one row.
-__device__ __forceinline__ void stage(float* rec, const float* attrs,
-                                      int e_len, int base, int n) {
-  for (int row = 0; row < kUsedRows; ++row) {
-    const float* src = attrs + (size_t)row * e_len + base;
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      cp_async4(rec + j * kRec + row, src + j);
-    }
-  }
-}
 
 // Sum v[e][k] over the warp for each entry e of the batch.  Afterwards the
 // lane's v[0] holds the sums of entry sum_s bit(lane, 16 >> s) * (kB >> (s
@@ -355,48 +326,6 @@ __global__ void __launch_bounds__(1024 / kR) rasterize_bwd_kernel(
     if (!__syncthreads_or(more)) break;
   }
   cp_async_wait<0>();  // a prefetch the early exit left in flight
-}
-
-// The heaviest tiles first: a counting sort of the tiles into kBuckets
-// buckets of their clamped entry count (4 per octave, the largest counts
-// first), one CTA.  Only the order in which tiles are launched changes,
-// never a result (each tile writes its own slots alone), so the atomics'
-// order within a bucket does not matter.  It shortens the last wave: a
-// heavy tile launched late would run on an otherwise idle SM.
-constexpr int kBuckets = 128;
-
-__device__ __forceinline__ int count_bucket(const int32_t* offsets, int t,
-                                            int e_len) {
-  const int uo = min(max(offsets[t], 0), e_len);
-  const int cnt = min(max(offsets[t + 1], uo), e_len) - uo;
-  if (cnt <= 0) return kBuckets - 1;
-  const int lg = 31 - __clz(cnt);
-  const int frac = (lg >= 2 ? cnt >> (lg - 2) : cnt << (2 - lg)) & 3;
-  return kBuckets - 1 - (lg * 4 + frac);
-}
-
-__global__ void tile_order_kernel(const int32_t* __restrict__ offsets,
-                                  int n_tiles, int e_len,
-                                  int32_t* __restrict__ order) {
-  __shared__ int start[kBuckets];
-  for (int b = threadIdx.x; b < kBuckets; b += blockDim.x) start[b] = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
-    atomicAdd(&start[count_bucket(offsets, t, e_len)], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {  // exclusive scan of the bucket sizes
-    int run = 0;
-    for (int b = 0; b < kBuckets; ++b) {
-      const int c = start[b];
-      start[b] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
-    order[atomicAdd(&start[count_bucket(offsets, t, e_len)], 1)] = t;
-  }
 }
 
 // Threads and dynamic shared bytes of the kernel for this tile and chunk,

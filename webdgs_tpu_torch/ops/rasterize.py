@@ -5,16 +5,16 @@ of webdgs_tpu/ops/rasterize.py:63-86, 347-740, 743-950).
 ``torch.autograd.Function``; ``tile_offsets`` gets no gradient, and the
 cotangents of channels 5-7 -- n_contrib and the spare channels -- are
 ignored).  Its forward is the wrapper of CUDA kernel
-``csrc/rasterize_fwd.cu`` (one CTA per tile, one thread per pixel, entries
-staged through shared memory); its backward folds the per-pixel suffix
-term outside the kernel and calls :func:`rasterize_tiles_backward`, the
-wrapper of ``csrc/rasterize_bwd.cu``.  On a CPU tensor each wrapper runs
-its plain torch version (:func:`rasterize_tiles_plain`,
-:func:`rasterize_tiles_backward_plain`), blocked like the TPU kernels: all
-tiles in parallel, chunks of ``settings.chunk`` entries, the exclusive
-log-transmittance carried across chunks, and a tile dropping out once all
-its pixels have saturated.  On a CUDA tensor each launches its kernel or
-raises.
+``csrc/rasterize_fwd.cu`` (one CTA per tile, four pixels per thread,
+entries staged through shared memory, tiles launched heaviest first); its
+backward folds the per-pixel suffix term outside the kernel and calls
+:func:`rasterize_tiles_backward`, the wrapper of ``csrc/rasterize_bwd.cu``.
+On a CPU tensor each wrapper runs its plain torch version
+(:func:`rasterize_tiles_plain`, :func:`rasterize_tiles_backward_plain`),
+blocked like the TPU kernels: all tiles in parallel, chunks of
+``settings.chunk`` entries, the exclusive log-transmittance carried across
+chunks, and a tile dropping out once all its pixels have saturated.  On a
+CUDA tensor each launches its kernel or raises.
 
 ``pack_entry_attrs`` gathers per-Gaussian attributes into per-entry rows.
 Given the binning's ``entry_source``/``gauss_counts`` (the training path),
@@ -60,10 +60,11 @@ NUM_OUT = 8
 GPIX_SUFFIX = 4
 NUM_GPIX = 5
 
-# the kernel stages ROW_CX..ROW_EY of each chunk in dynamic shared memory,
-# which a launch may size up to 48 KB without an opt-in attribute
-_USED_ROWS = ROW_EY + 1
-_MAX_CHUNK = 48 * 1024 // (4 * _USED_ROWS)
+# the forward kernel stages ROW_CX..ROW_EY of each entry as a 12-float
+# record, two chunks at a time, in dynamic shared memory, which it sizes up
+# to 48 KB without an opt-in attribute
+_RECORD_FLOATS = 12
+_MAX_CHUNK = 48 * 1024 // (2 * 4 * _RECORD_FLOATS)
 
 
 def _check_inputs(attrs16, tile_offsets, ntx, nty, settings):
@@ -88,16 +89,6 @@ def _check_inputs(attrs16, tile_offsets, ntx, nty, settings):
                          "block holds 1 to 1024")
     if not 0 < settings.chunk <= _MAX_CHUNK:
         raise ValueError(f"chunk must be in [1, {_MAX_CHUNK}]")
-
-
-def _check_offsets(attrs16, tile_offsets):
-    """The forward kernel reads attrs16 through the offsets: keep them in
-    bounds.  A read back to the host; the backward kernel clamps each
-    tile's range itself and skips this."""
-    lo, hi = torch.stack(torch.aminmax(tile_offsets)).tolist()
-    if lo < 0 or hi > attrs16.shape[1]:
-        raise ValueError(f"tile_offsets span [{lo}, {hi}], outside the "
-                         f"{attrs16.shape[1]} entries of attrs16")
 
 
 def _pixel_coords(ntx: int, n_tiles: int, settings: RenderSettings,
@@ -139,15 +130,18 @@ def rasterize_tiles_plain(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
                           num_tiles_x: int, num_tiles_y: int,
                           settings: RenderSettings,
                           track_ncontrib: bool = True) -> torch.Tensor:
-    """Plain torch version of the kernel, (T, NUM_OUT, P) float32."""
+    """Plain torch version of the kernel, (T, NUM_OUT, P) float32.  Each
+    tile's range is clamped to 0 <= uo <= end <= E, as the kernel clamps
+    it."""
     dev = attrs16.device
     n_tiles = num_tiles_x * num_tiles_y
     p, k = settings.tile_px, settings.chunk
     log_t_min = math.log(settings.t_threshold)
     e_len = attrs16.shape[1]
 
-    uo = tile_offsets[:-1].to(torch.int64)
-    cnt = tile_offsets[1:].to(torch.int64) - uo
+    off = tile_offsets.to(torch.int64)
+    uo = off[:-1].clamp(0, e_len)
+    cnt = torch.maximum(off[1:], uo).clamp(max=e_len) - uo
     nch = (cnt + k - 1) // k
     pxf, pyf = _pixel_coords(num_tiles_x, n_tiles, settings, dev)
     lane = torch.arange(k, dtype=torch.int64, device=dev)
@@ -206,6 +200,9 @@ def _rasterize_tiles_cuda(attrs16, tile_offsets, ntx, nty, settings,
                       dtype=torch.float32, device=dev)
     if n_tiles == 0:
         return out
+    # scratch for the launch order the kernel computes (heaviest tiles
+    # first, by entry count)
+    order = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.webdgs_rasterize_fwd(
@@ -213,7 +210,7 @@ def _rasterize_tiles_cuda(attrs16, tile_offsets, ntx, nty, settings,
             n_tiles, ntx, settings.tile_w, settings.tile_h, settings.chunk,
             settings.alpha_min, settings.alpha_max, settings.t_threshold,
             math.log(settings.t_threshold), int(track_ncontrib),
-            out.data_ptr(), stream)
+            out.data_ptr(), order.data_ptr(), stream)
     _build.check(err, "rasterize_tiles")
     rasterize_tiles.kernel_launches += 1
     return out
@@ -262,12 +259,13 @@ def rasterize_tiles(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
     Returns (T, NUM_OUT, P) channel-planar per-tile pixels
     [r, g, b, acc_alpha, T_final, n_contrib, 0, 0] without background;
     channel 5 reads 0 unless ``track_ncontrib``.  Differentiable with
-    respect to ``attrs16``.
+    respect to ``attrs16``.  Tile ranges past [0, E] are clamped (by the
+    kernels and the plain versions alike), so the offsets are never read
+    back to the host: nothing here waits for the device.
     ``rasterize_tiles.kernel_launches`` counts the forward kernel's
     launches.
     """
     _check_inputs(attrs16, tile_offsets, num_tiles_x, num_tiles_y, settings)
-    _check_offsets(attrs16, tile_offsets)
     return _RasterizeTiles.apply(attrs16, tile_offsets, num_tiles_x,
                                  num_tiles_y, settings, track_ncontrib)
 
@@ -490,10 +488,12 @@ def pack_entry_attrs(attrs, entry_gauss: torch.Tensor,
 def composite_background(tiles: torch.Tensor,
                          settings: RenderSettings) -> torch.Tensor:
     """accum + background * T_final; tiles: (..., NUM_OUT) image-space
-    pixel channels (after :func:`tiles_to_image`) -> (..., 3)."""
-    bg = torch.tensor(settings.background, dtype=torch.float32,
-                      device=tiles.device)
-    return tiles[..., 0:3] + bg * tiles[..., OUT_T:OUT_T + 1]
+    pixel channels (after :func:`tiles_to_image`) -> (..., 3).  The
+    background enters as Python scalars: no upload from the host, which
+    would wait for the device."""
+    t_final = tiles[..., OUT_T]
+    return torch.stack([tiles[..., c] + b * t_final
+                        for c, b in enumerate(settings.background)], dim=-1)
 
 
 def tiles_to_image(out: torch.Tensor, num_tiles_x: int, num_tiles_y: int,
