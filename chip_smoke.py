@@ -23,6 +23,12 @@ forward kernel at its three shapes (bench frame, 1M frame, densify view):
 all 8 output channels must be bit-identical to it and this one faster in
 every pairing.  ``--ablate-fwd`` times the copies of the forward kernel
 that FWD_VARIANTS describe at the bench and 1M frames.
+``--before-imp PATH`` builds an earlier importance.cu (for example
+``git show 2efee97:webdgs_tpu_torch/csrc/importance.cu``) and times it in
+turns with the importance kernel at both metric views (bench, densify),
+back to back and queued: every slot must be equal to it and this one
+faster in every pairing.  ``--ablate-imp`` times the copies of the
+importance kernel that IMP_VARIANTS describe at both views.
 
 Phases (any failure raises, and the script exits non-zero with no result):
   1. device: CUDA must be available; prints the card's name and power limit;
@@ -32,7 +38,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
      the shapes the bench frame and the bench training step give it (100k
      random Gaussians, seed 0, 800x600, camera at (0, 0, -8)), and the
      importance kernel at the bench scene's 400x300 metric view (equal to
-     its plain version on every slot), with both times, each kernel since
+     its plain version on every slot, also queued, with its launch shape
+     and registers, and run in sync debug mode "error"), with both times, each kernel since
      the first slice run twice and required bit-identical, and the bound
      (bytes or operations) this run's inputs need; the forward raster also
      queued, with its tiles' work and launch shape, and the public
@@ -67,7 +74,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
      just before and the importance and segment-sum counters must grow;
      clone, split and prune each > 0; capacity growth; finite parameters;
      the synchronizing calls of each event counted, none of them from the
-     segment sum or the raster wrappers), the forward kernel matches and
+     segment sum, the raster wrappers or the importance counts), the
+     forward kernel matches and
      the importance kernel equals its plain version on every slot of one
      960x540 metric view of the post-event state and the
      one-row segment sum of its counts matches its plain version there,
@@ -297,12 +305,20 @@ def metric_view_inputs(scene, cam, target, mw: int, mh: int,
             int(bins.total_entries), bins)
 
 
-def importance_check(label: str, margs, n_valid: int, plain_iters: int
-                     ) -> dict:
+def importance_check(label: str, margs, n_valid: int, plain_iters: int,
+                     host_bound: bool = False) -> dict:
     """The importance kernel against ``entry_counts_plain`` on one metric
-    view's inputs: every slot equal and two runs bit-identical.  Returns
-    both times, the bound from these inputs and the view's load."""
+    view's inputs: every slot equal, two runs bit-identical, and the
+    public wrapper run in sync debug mode "error".  Times the kernel back
+    to back (in turns with its plain version) and queued, and returns
+    both times, the bound from these inputs, the launch shape and the
+    view's load.  With BEFORE_IMP, the earlier kernel too, in turns with
+    this one, back to back and queued: every slot equal and this one
+    faster in every pairing (queued only, where ``host_bound``).  Each
+    copy in IMP_ABLATIONS is timed."""
+    import ctypes
     import torch
+    from webdgs_tpu_torch import _build
     from webdgs_tpu_torch.ops import importance
     m16, toff, pix_tiles, ntx, nty, settings = margs
     ik = importance.entry_counts(*margs)
@@ -317,9 +333,27 @@ def importance_check(label: str, margs, n_valid: int, plain_iters: int
     check(n_diff == 0, f"importance kernel ({label}): {n_diff} of "
           f"{ip.shape[0]} slots differ from the plain version (sum {k_sum} "
           f"vs {p_sum})")
+    # the wrapper never waits for the device: in sync debug mode "error" a
+    # synchronizing call raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ik3 = importance.entry_counts(*margs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(ik3, ik), f"importance kernel ({label}) differs in "
+          "sync debug mode")
+
+    def kernel():
+        return importance._entry_counts_cuda(*margs)
     k_ms, p_ms = time_pair(
-        lambda: importance._entry_counts_cuda(*margs),
-        lambda: importance.entry_counts_plain(*margs), 50, plain_iters)
+        kernel, lambda: importance.entry_counts_plain(*margs), 50,
+        plain_iters)
+    dev_ms = queued_ms(kernel, 50)
+    shape = (ctypes.c_int * 5)()
+    _build.check(_build.library().webdgs_importance_occupancy(
+        settings.tile_w, settings.tile_h, shape),
+        "webdgs_importance_occupancy")
+    launch = dict(zip(IMP_LAUNCH_KEYS, shape))
     flag = pix_tiles[..., 0] > 0
     nc = torch.where(flag, pix_tiles[..., 1], 0.0).to(torch.float64)
     n_tiles = ntx * nty
@@ -335,20 +369,58 @@ def importance_check(label: str, margs, n_valid: int, plain_iters: int
     bound = bound_ms(4 * (8 * needed + n_tiles + 1
                           + 2 * n_tiles * settings.tile_px + m16.shape[1]),
                      ALPHA_OPS_PER_PAIR * pairs)
-    res = {"ms": k_ms, "plain_ms": p_ms, "bound": bound,
+    res = {"ms": k_ms, "plain_ms": p_ms, "device_ms": dev_ms, "bound": bound,
            "err": float((ik - ip).abs().max()), "sum": p_sum,
            "slots": ip.shape[0], "valid": n_valid,
            "nonzero": int((ip > 0).sum()), "flagged": int(flag.sum()),
            "pixels": int(flag.numel()), "live_tiles": int(flag.any(1).sum()),
-           "tiles": n_tiles, "needed": needed, "pairs": pairs}
+           "tiles": n_tiles, "needed": needed, "pairs": pairs,
+           "launch": launch}
     print(f"[kernels] entry_counts (importance) {label}: {n_valid} valid "
           f"entries of {res['slots']} slots, {res['flagged']} of "
           f"{res['pixels']} pixels flagged, {res['live_tiles']}/{n_tiles} "
           f"live tiles, {needed} entries read, {pairs} (flagged pixel, "
-          f"entry) pairs; all slots equal to the plain version ("
-          f"{res['nonzero']} non-zero, sum {p_sum:.0f}); bit-identical "
-          f"repeat; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
-          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+          f"entry) pairs; launch {launch}; all slots equal to the plain "
+          f"version ({res['nonzero']} non-zero, sum {p_sum:.0f}); "
+          f"bit-identical repeat; sync debug mode \"error\" passed; kernel "
+          f"{k_ms:.4f} ms, queued {dev_ms:.4f} ms, plain {p_ms:.4f} ms; "
+          f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    if BEFORE_IMP is not None:
+        def before():
+            return BEFORE_IMP(*margs)
+        same = torch.equal(before(), ik)
+        # in turns: new, before, new, before
+        b2b = [cuda_ms(f, 50) for f in (kernel, before, kernel, before)]
+        queued = [queued_ms(f, 50) for f in (kernel, before, kernel,
+                                             before)]
+        res["before"] = {"equal": same, "ms": b2b[1::2],
+                         "device_ms": queued[1::2], "new_ms": b2b[0::2],
+                         "new_device_ms": queued[0::2]}
+        print(f"[kernels] entry_counts {label}, the earlier kernel on the "
+              f"same inputs: every slot equal {same}; back to back "
+              f"{b2b[1]:.4f} / {b2b[3]:.4f} ms (this one {b2b[0]:.4f} / "
+              f"{b2b[2]:.4f}); queued {queued[1]:.4f} / {queued[3]:.4f} ms "
+              f"(this one {queued[0]:.4f} / {queued[2]:.4f})", flush=True)
+        check(same, f"entry_counts ({label}) differs from the earlier "
+              "kernel")
+        # where the wrapper's host time exceeds the kernel's device time
+        # (the light bench view), back to back times the host: there only
+        # the queued pairings compare the kernels
+        check(max(queued[0::2]) < min(queued[1::2]) and
+              (host_bound or max(b2b[0::2]) < min(b2b[1::2])),
+              f"entry_counts ({label}) is not faster than the earlier "
+              f"kernel: {res['before']}")
+    for name, (variant, regs) in IMP_ABLATIONS.items():
+        def run_variant(variant=variant):
+            return variant(*margs)
+        same = torch.equal(run_variant(), ik)
+        v_ms = cuda_ms(run_variant, 50)
+        v_dev = queued_ms(run_variant, 50)
+        shape_v = variant.occupancy(settings)
+        print(f"[kernels] entry_counts {label}, variant {name} (a timing "
+              f"probe): {regs} registers, launch {shape_v}; every slot "
+              f"equal {same}; {v_ms:.4f} ms, queued {v_dev:.4f} ms",
+              flush=True)
     return res
 
 
@@ -477,6 +549,79 @@ def load_fwd(so_path):
     return run
 
 
+# webdgs_importance_occupancy's five numbers
+IMP_LAUNCH_KEYS = ("threads", "smem_bytes", "ctas_per_sm", "registers",
+                   "ctas_per_tile")
+
+
+def load_imp(so_path):
+    """A library holding ``webdgs_importance``, loaded on its own: this
+    checkout's C interface where the library exports
+    ``webdgs_importance_occupancy``, else that of commits 8c7f768 to
+    2efee97 (with a chunk).  Returns a function of (attrs16,
+    tile_offsets, pix_tiles, ntx, nty, settings) that runs it as the
+    port's wrapper does, on a zeroed (E,) output.  Its ``occupancy`` gives
+    the launch shape for the settings with this checkout's interface, else
+    None."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    lib = ctypes.CDLL(str(so_path))
+    current = hasattr(lib, "webdgs_importance_occupancy")
+    fn = lib.webdgs_importance
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = _build.SIGNATURES["webdgs_importance"] if current else (
+        p_, i_, p_, p_, i_, i_, i_, i_, i_, f_, f_, p_, p_)
+    fn.restype = ctypes.c_int
+
+    def run(attrs16, toff, pix_tiles, ntx, nty, settings):
+        out = torch.zeros((attrs16.shape[1],), dtype=torch.float32,
+                          device=attrs16.device)
+        args = [attrs16.data_ptr(), attrs16.shape[1], toff.data_ptr(),
+                pix_tiles.data_ptr(), ntx * nty, ntx, settings.tile_w,
+                settings.tile_h]
+        if not current:
+            args.append(settings.chunk)
+        args += [settings.alpha_min, settings.alpha_max, out.data_ptr()]
+        err = fn(*args, torch.cuda.current_stream(attrs16.device).cuda_stream)
+        check(err == 0, f"{so_path}: CUDA error {err} at launch")
+        return out
+
+    def occupancy(settings) -> dict:
+        out = (ctypes.c_int * 5)()
+        occ = lib.webdgs_importance_occupancy
+        occ.argtypes = _build.SIGNATURES["webdgs_importance_occupancy"]
+        check(occ(settings.tile_w, settings.tile_h, out) == 0,
+              f"{so_path}: occupancy query")
+        return dict(zip(IMP_LAUNCH_KEYS, out))
+    run.occupancy = occupancy if current else None
+    return run
+
+
+# --ablate-imp: copies of the importance kernel's source with one part
+# changed, as BWD_VARIANTS below (timing probes that keep the function, so
+# each is also compared with the kernel on every slot).  Of this
+# checkout's csrc/importance.cu:
+IMP_VARIANTS = {
+    "no_pixel_order": (("constexpr bool kOrderPixels = true;",
+                        "constexpr bool kOrderPixels = false;"),),
+    "box_after_expf": ((
+        "if (!(fabsf(dx) <= ex && fabsf(dy) <= ey)) continue;  // box first",
+        ""),),
+    "split_1": (("constexpr int kSplit = 8;", "constexpr int kSplit = 1;"),),
+    "split_4": (("constexpr int kSplit = 8;", "constexpr int kSplit = 4;"),),
+    "split_16": (("constexpr int kSplit = 8;",
+                  "constexpr int kSplit = 16;"),),
+    "threads_128": (("constexpr int kThreads = 256;",
+                     "constexpr int kThreads = 128;"),),
+    "threads_512": (("constexpr int kThreads = 256;",
+                     "constexpr int kThreads = 512;"),),
+    # at most 32 registers: 8 CTAs per SM instead of 6
+    "min_ctas_8": (("__launch_bounds__(kThreads)",
+                    "__launch_bounds__(kThreads, 8)"),),
+}
+
+
 # --ablate-fwd: copies of the forward kernel's source with one part
 # changed, as BWD_VARIANTS below (timing probes; every copy keeps the
 # function, so each is also compared with the kernel bit for bit).  Of
@@ -542,16 +687,17 @@ BEFORE_BWD_VARIANTS = {
 # the raster kernels that build_variants builds copies of: kind -> (stem
 # of the built file, loader)
 VARIANT_KINDS = {"fwd": ("rasterize_fwd", load_fwd),
-                 "bwd": ("rasterize_bwd", load_bwd)}
+                 "bwd": ("rasterize_bwd", load_bwd),
+                 "imp": ("importance", load_imp)}
 
 
 def build_variants(jobs) -> dict:
-    """Build raster kernels beside the library, every nvcc call started at
-    once.  ``jobs``: (kind, name, source, ((text, replacement), ...)), kind
-    "fwd" or "bwd"; a source with substitutions is written with them into
+    """Build kernels beside the library, every nvcc call started at once.
+    ``jobs``: (kind, name, source, ((text, replacement), ...)), kind "fwd",
+    "bwd" or "imp"; a source with substitutions is written with them into
     the build directory first.  Returns (kind, name) -> (the function
-    load_fwd or load_bwd gives, registers per thread of its kernels'
-    largest)."""
+    load_fwd, load_bwd or load_imp gives, registers per thread of its
+    kernels' largest)."""
     import concurrent.futures
     from pathlib import Path
     from webdgs_tpu_torch import _build
@@ -584,6 +730,9 @@ BWD_ABLATIONS: dict = {}
 # set by --before-fwd and --ablate-fwd: the same for the forward kernel
 BEFORE_FWD = None
 FWD_ABLATIONS: dict = {}
+# set by --before-imp and --ablate-imp: the same for the importance kernel
+BEFORE_IMP = None
+IMP_ABLATIONS: dict = {}
 
 
 def forward_check(label: str, attrs16, tile_offsets, ntx: int, nty: int,
@@ -1095,11 +1244,13 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     for i, ev in enumerate(events):
         # the event reads its counts back once, so at least that one shows
         check(sum(ev["syncs"].values()) > 0, "no synchronizing call seen")
-        # the segment sum reads nothing back on this path
-        seg_syncs = {k: v for k, v in ev["syncs"].items()
-                     if "ops/segsum.py" in k or "ops/rasterize.py" in k}
-        check(not seg_syncs, f"the segment sum or the raster wrappers "
-              f"synchronized: {seg_syncs}")
+        # the segment sum, the raster wrappers and the importance counts
+        # read nothing back on this path
+        kernel_syncs = {k: v for k, v in ev["syncs"].items()
+                        if any(f"ops/{m}.py" in k for m in
+                               ("segsum", "rasterize", "importance"))}
+        check(not kernel_syncs, f"the segment sum, the raster wrappers or "
+              f"the importance counts synchronized: {kernel_syncs}")
         print(f"[densify] {n} sh3 {W}x{H}, event {i + 1} at iteration "
               f"{ev['iteration']}: {ev['ms']:.2f} ms host (synchronized); "
               f"points {ev['points'][0]} -> {ev['points'][1]}; capacity "
@@ -1397,6 +1548,14 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--ablate-fwd", action="store_true",
                     help="also time FWD_VARIANTS of the forward kernel at "
                     "the bench and 1M frames")
+    ap.add_argument("--before-imp", metavar="IMPORTANCE_CU",
+                    help="an earlier csrc/importance.cu (the interface of "
+                    "commits 8c7f768 to 2efee97) to time beside the "
+                    "importance kernel at both metric views; every slot "
+                    "must be equal")
+    ap.add_argument("--ablate-imp", action="store_true",
+                    help="also time IMP_VARIANTS of the importance kernel "
+                    "at both metric views")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1438,22 +1597,30 @@ def main(argv: list[str] | None = None) -> int:
     if args.ablate_fwd:
         jobs += [("fwd", n, _build.CSRC / "rasterize_fwd.cu", subs)
                  for n, subs in FWD_VARIANTS.items()]
+    if args.before_imp:
+        jobs.append(("imp", "before", args.before_imp, ()))
+    if args.ablate_imp:
+        jobs += [("imp", n, _build.CSRC / "importance.cu", subs)
+                 for n, subs in IMP_VARIANTS.items()]
     if jobs:
-        global BEFORE_BWD, BEFORE_FWD
+        global BEFORE_BWD, BEFORE_FWD, BEFORE_IMP
         built = build_variants(jobs)
         for side, table, path in (("bwd", BWD_ABLATIONS, args.before_bwd),
-                                  ("fwd", FWD_ABLATIONS, args.before_fwd)):
+                                  ("fwd", FWD_ABLATIONS, args.before_fwd),
+                                  ("imp", IMP_ABLATIONS, args.before_imp)):
             if path:
                 before, regs = built.pop((side, "before"))
-                print(f"[build] the earlier {side} raster kernel {path}: "
-                      f"{regs} registers", flush=True)
+                print(f"[build] the earlier {side} kernel {path}: {regs} "
+                      "registers", flush=True)
                 if side == "bwd":
                     BEFORE_BWD = before
-                else:
+                elif side == "fwd":
                     BEFORE_FWD = before
+                else:
+                    BEFORE_IMP = before
             table.update({n: v for (k, n), v in built.items() if k == side})
             if table:
-                print(f"[build] {side} raster variants: {sorted(table)}",
+                print(f"[build] {side} variants: {sorted(table)}",
                       flush=True)
 
     import torch.nn.functional as F
@@ -1617,7 +1784,8 @@ def main(argv: list[str] | None = None) -> int:
     mcam = default_camera(mw, mh, position=(0.0, 0.0, -8.0), device=dev)
     margs, mtotal, _ = metric_view_inputs(scene, mcam, tgt, mw, mh, 0.5,
                                           settings)
-    imp_bench = importance_check(f"{mw}x{mh} bench view", margs, mtotal, 5)
+    imp_bench = importance_check(f"{mw}x{mh} bench view", margs, mtotal, 5,
+                                 host_bound=True)
     del margs
 
     # --- 4. the viewer slice: frames through the render kernels ---
@@ -1980,11 +2148,17 @@ def main(argv: list[str] | None = None) -> int:
               imp["plain_ms"], imp["bound"], None,
               launches_per_event=dlaunch["entry_counts"]
               // len(densify_res["events"]),
+              device_ms=imp["device_ms"], launch=imp["launch"],
+              pairs=imp["pairs"], before=imp.get("before"),
               bench_view={"max_abs_err": imp_bench["err"],
                           "ms": imp_bench["ms"],
                           "plain_ms": imp_bench["plain_ms"],
                           "bound_ms": imp_bench["bound"][0],
-                          "bound_by": imp_bench["bound"][1]}),
+                          "bound_by": imp_bench["bound"][1],
+                          "library_ms": None,
+                          "device_ms": imp_bench["device_ms"],
+                          "pairs": imp_bench["pairs"],
+                          "before": imp_bench.get("before")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -299,6 +299,117 @@ def test_importance_kernel_matches_plain(cuda, n, w, h, threshold):
     assert not k1[total:].any()
 
 
+
+# crafted importance-count inputs (shared with tests/test_torch_importance.py,
+# which holds them against JAX): name -> (tile ranges, pixel recipe)
+IMPORTANCE_CASES = ("single_flag", "all_flagged", "nc_ties",
+                    "nc_above_range", "nc_zero", "long_range")
+# an alpha this close (relative) to alpha_min is a tie the crafting avoids
+_ALPHA_BAND = 1e-3
+
+
+def crafted_importance_case(case: str, seed: int, tile_w: int = 32,
+                            tile_h: int = 16, alpha_min: float = 1 / 255,
+                            alpha_max: float = 0.99, chunk: int = 128):
+    """Numpy inputs of entry_counts for two tiles side by side: (attrs16
+    (16, E) float32, tile_offsets (3,) int32, pix_tiles (2, P, 2) float32,
+    ntx, nty).  Splat centres sit at a quarter pixel and extents end at a
+    half pixel, so no pixel centre is near a box edge; each entry's
+    opacity is redrawn until no pixel of its tile sees an alpha within
+    _ALPHA_BAND of alpha_min.  E is a multiple of ``chunk`` with spare
+    slots past the ranges, and the first range's end is not chunk-aligned
+    (the JAX kernel's shared boundary chunk)."""
+    rng = np.random.default_rng(seed)
+    npx = tile_w * tile_h
+    lens = {"long_range": (1500, 600), "single_flag": (300, 170),
+            "over_8192": (9000, 300)}.get(case, (230, 170))
+    e_len = -(-(sum(lens) + 5) // chunk) * chunk
+    a16 = np.zeros((16, e_len), np.float32)
+    off = np.array([0, lens[0], sum(lens)], np.int32)
+    gx, gy = np.meshgrid(np.arange(tile_w) + 0.5, np.arange(tile_h) + 0.5)
+    for t in range(2):
+        for e in range(off[t], off[t + 1]):
+            sx, sy = rng.uniform(0.8, 6.0, 2)
+            ca, cc = 1.0 / sx ** 2, 1.0 / sy ** 2
+            cb = rng.uniform(-0.4, 0.4) * np.sqrt(ca * cc)
+            cx = t * tile_w + rng.integers(-6, tile_w + 6) + 0.25
+            cy = rng.integers(-6, tile_h + 6) + 0.25
+            ex, ey = np.ceil(3 * sx) + 0.5, np.ceil(3 * sy) + 0.5
+            a16[[0, 1, 2, 3, 4, 9, 10], e] = (cx, cy, ca, cb, cc, ex, ey)
+            # the float32 values the kernels see
+            cx, cy, ca, cb, cc = a16[0:5, e].astype(np.float64)
+            dx = t * tile_w + gx - cx
+            dy = gy - cy
+            inside = (np.abs(dx) <= ex) & (np.abs(dy) <= ey)
+            g = np.exp(-0.5 * (ca * dx * dx + 2 * cb * dx * dy
+                               + cc * dy * dy))
+            while True:
+                op = np.float32(rng.uniform(0.02, 1.0))
+                alpha = np.minimum(float(op) * g, alpha_max)[inside]
+                if not (np.abs(alpha / alpha_min - 1) < _ALPHA_BAND).any():
+                    break
+            a16[8, e] = op
+            a16[5:8, e] = rng.uniform(0, 1, 3)
+    pix = np.zeros((2, npx, 2), np.float32)
+    for t in range(2):
+        n = lens[t]
+        nc = rng.integers(0, n + 1, npx)
+        flag = rng.random(npx) < 0.4
+        if case == "single_flag":
+            flag[:] = False
+            flag[rng.integers(npx)] = True
+            nc[flag] = rng.integers(n // 2, n + 1)
+        elif case in ("all_flagged", "long_range", "over_8192"):
+            flag[:] = True
+        elif case == "nc_ties":
+            nc = rng.choice([1, 7, 7, 40, n // 2, n], npx)
+        elif case == "nc_above_range":
+            nc = n + rng.integers(1, 1000, npx)
+        elif case == "nc_zero":
+            nc[flag] = 0 if t == 0 else nc[flag] * (rng.random(
+                int(flag.sum())) < 0.5)
+        pix[t, :, 0] = flag
+        pix[t, :, 1] = nc
+    return a16, off, pix, 2, 1
+
+
+@pytest.mark.parametrize("case", IMPORTANCE_CASES + ("over_8192",))
+def test_importance_kernel_crafted_cases(cuda, case):
+    """The crafted cases (a single flagged pixel, every pixel flagged,
+    ties in n_contrib, n_contrib past the range, flagged pixels with
+    n_contrib 0, a range of 1,500 entries, and one of 9,000, past the
+    kernel's last n_contrib bucket): every slot of the kernel equal to the
+    plain version, bit-identical on repeat."""
+    from webdgs_tpu_torch.ops import importance as timp
+    a16, off, pix, ntx, nty = crafted_importance_case(case, seed=21)
+    args = [torch.tensor(x).to(cuda) for x in (a16, off, pix)]
+    s = RenderSettings()
+    launches = timp.entry_counts.kernel_launches
+    k1 = timp.entry_counts(*args, ntx, nty, s)
+    k2 = timp.entry_counts(*args, ntx, nty, s)
+    torch.cuda.synchronize()
+    assert timp.entry_counts.kernel_launches == launches + 2
+    assert torch.equal(k1, k2)
+    p = timp.entry_counts_plain(*args, ntx, nty, s)
+    assert torch.equal(k1, p)
+    assert float(p.sum()) > 0 or case == "nc_zero"
+
+
+def test_importance_runs_without_host_sync(cuda):
+    """entry_counts on CUDA tensors waits for the device nowhere: in sync
+    debug mode "error" any synchronizing call raises."""
+    from webdgs_tpu_torch.ops import importance as timp
+    a16, off, pix, ntx, nty = crafted_importance_case("long_range", seed=22)
+    args = [torch.tensor(x).to(cuda) for x in (a16, off, pix)]
+    s = RenderSettings()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = timp.entry_counts(*args, ntx, nty, s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, timp.entry_counts_plain(*args, ntx, nty, s))
+
 def test_train_step_on_cuda_matches_cpu(cuda):
     """One training step on the card against the same step on the CPU:
     the metrics and the gradients' first moments agree."""

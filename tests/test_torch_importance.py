@@ -24,9 +24,11 @@ from webdgs_tpu.ops.projection import project_gaussians as jproject
 from webdgs_tpu_torch.core.camera import default_camera
 from webdgs_tpu_torch.ops import binning as tbin
 from webdgs_tpu_torch.ops import importance as timp
+from webdgs_tpu_torch.ops import rasterize as tras
 from webdgs_tpu_torch.ops.projection import project_gaussians as tproject
 from webdgs_tpu_torch.render.renderer import render
 
+from tests.test_torch_cuda import IMPORTANCE_CASES, crafted_importance_case
 from tests.torch_parity import (both_cameras, both_scenes, jax_settings, np_,
                                 numpy_scene, t_, torch_settings)
 
@@ -132,11 +134,126 @@ def test_entry_counts_checks_inputs():
     with pytest.raises(ValueError, match="multiple of 32"):
         timp.entry_counts(a16, off, torch.zeros((2, 15 * 16, 2)), 2, 1,
                           torch_settings(tile_w=15))
-    with pytest.raises(ValueError, match="shared memory"):
-        timp.entry_counts(a16, off, pix, 2, 1, torch_settings(chunk=1024))
-    with pytest.raises(ValueError, match="outside"):
-        timp.entry_counts(a16, torch.tensor([0, 5, 300], dtype=torch.int32),
-                          pix, 2, 1, s)
+    with pytest.raises(ValueError, match="at most 1024"):
+        timp.entry_counts(a16, off, torch.zeros((2, 64 * 32, 2)), 2, 1,
+                          torch_settings(tile_w=64, tile_h=32))
+    # ranges outside attrs16 are clamped to [0, E], as the kernel clamps
+    # them: no read back, no error, the clamped ranges' counts
+    a16c, _, pixc, _, _ = crafted_importance_case("all_flagged", seed=1)
+    a16c, pixc = t_(a16c), t_(pixc)
+    e_len = a16c.shape[1]
+    for bad in ([0, 5, e_len + 88], [-1, 0, 0], [-9, 200, 2 ** 30]):
+        bad = torch.tensor(bad, dtype=torch.int32)
+        got = timp.entry_counts(a16c, bad, pixc, 2, 1, s)
+        want = timp.entry_counts_plain(a16c, bad.clamp(0, e_len), pixc, 2,
+                                       1, s)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(got.sum()) > 0
+
+
+def _torch_view(n, seed, w, h, threshold):
+    """One importance view's inputs built by the port on the CPU: entry
+    rows, offsets, (flag, n_contrib) pixel tiles and the tile grid."""
+    _, ts = both_scenes(numpy_scene(n, seed=seed))
+    cam = default_camera(w, h, position=(0.0, 0.0, -5.0), device="cpu")
+    s = torch_settings()
+    attrs, aux = tproject(ts.params(), ts.alive, cam, w, h, 0, s)
+    bins = tbin.bin_splats(aux, w, h, s, attrs=attrs)
+    a16 = tras.pack_entry_attrs(attrs, bins.entry_gauss, bins.entry_valid)
+    ntx, nty = tbin.tile_grid(w, h, s)
+    out = tras.rasterize_tiles(a16, bins.tile_offsets, ntx, nty, s)
+    tiles = tras.tiles_to_image(out, ntx, nty, w, h, s)
+    pred = tras.composite_background(tiles, s)
+    target = t_(_noisy_target((h, w, 3), seed + 100, base=np_(pred)))
+    flag = timp.metric_flag_map(pred, target, threshold)
+    pix = torch.stack([flag, tiles[..., tras.OUT_NCONTRIB]], dim=-1)
+    pix_tiles = tras.image_to_tiles(pix, ntx, nty, s).contiguous()
+    return a16, bins.tile_offsets, pix_tiles, ntx, nty
+
+
+@pytest.mark.parametrize("fault", ["past_end", "below_zero", "both"])
+def test_entry_counts_clamps_out_of_range_offsets(fault):
+    """Tile ranges reaching outside [0, E]: the wrapper (plain on the CPU)
+    gives what the plain version gives on the clamped offsets, bit for
+    bit, as the kernel clamps them."""
+    a16, off, pix, ntx, nty = _torch_view(300, 3, 96, 80, 0.3)
+    e_len = a16.shape[1]
+    bad = off.clone()
+    if fault in ("past_end", "both"):
+        bad[-3:] = torch.tensor([e_len - 5, e_len + 5, 2 ** 30],
+                                dtype=torch.int32)
+    if fault in ("below_zero", "both"):
+        bad[0:2] = torch.tensor([-7, -2], dtype=torch.int32)
+    clamped = bad.clamp(0, e_len)
+    assert not torch.equal(bad, clamped)
+    s = torch_settings()
+    want = timp.entry_counts_plain(a16, clamped, pix, ntx, nty, s)
+    got = timp.entry_counts(a16, bad, pix, ntx, nty, s)
+    assert got.shape == (e_len,) and float(want.sum()) > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_entry_counts_reads_nothing_back(monkeypatch):
+    """The wrapper reads nothing back to the host (the kernel clamps the
+    ranges itself): every host read of a tensor raises while it runs,
+    except inside the plain version that stands in for the kernel on the
+    CPU; the result is the plain version's, bit for bit."""
+    a16, off, pix, ntx, nty = _torch_view(200, 4, 64, 48, 0.3)
+    args = (a16, off, pix, ntx, nty, torch_settings())
+    plain = timp.entry_counts_plain
+    want = plain(*args)
+    armed = [True]
+
+    def guard(method):
+        orig = getattr(torch.Tensor, method)
+
+        def read(self, *a, **k):
+            if armed[0]:
+                raise AssertionError(f"host read: Tensor.{method}")
+            return orig(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, method, read)
+
+    def unguarded_plain(*a, **k):
+        armed[0] = False
+        try:
+            return plain(*a, **k)
+        finally:
+            armed[0] = True
+
+    for method in ("tolist", "item", "__bool__", "__int__", "__float__",
+                   "__index__", "numpy"):
+        guard(method)
+    monkeypatch.setattr(timp, "entry_counts_plain", unguarded_plain)
+    got = timp.entry_counts(*args)
+    armed[0] = False
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(want.sum()) > 0
+    # the guard does catch a read
+    armed[0] = True
+    with pytest.raises(AssertionError, match="host read"):
+        off.tolist()
+    armed[0] = False
+
+
+@pytest.mark.parametrize("case", IMPORTANCE_CASES)
+def test_entry_counts_crafted_cases_match_jax(case):
+    """Crafted inputs (tests/test_torch_cuda.py:crafted_importance_case)
+    through the JAX kernel in interpret mode and the port: every alpha lies
+    clearly above or below alpha_min and no pixel centre near a box edge,
+    so every slot is equal, with no tolerance."""
+    a16, off, pix, ntx, nty = crafted_importance_case(case, seed=11)
+    want = np.asarray(jimp._entry_counts(
+        jnp.asarray(a16), jnp.asarray(off), jnp.asarray(pix), ntx, nty,
+        jax_settings())[0])
+    got = np_(timp.entry_counts(t_(a16), t_(off), t_(pix), ntx, nty,
+                                torch_settings()))
+    np.testing.assert_array_equal(got, want)
+    assert not got[off[-1]:].any()
+    if case == "nc_zero":
+        # tile 0's flagged pixels all have n_contrib 0: nothing counts
+        assert not got[off[0]:off[1]].any() and got.sum() > 0
+    else:
+        assert got[off[0]:off[1]].sum() > 0 and got[off[1]:off[2]].sum() > 0
 
 
 def _both_counts(n, seed, w, h, threshold, views):

@@ -62,9 +62,11 @@ SIGNATURES = {
     # work, work_bytes, out, device, stream
     "webdgs_segsum": (_P, _I, _L, _P, _P, _I, _P, _I, _P, _L, _P, _I, _P),
     # attrs16, e_len, tile_offsets, pix, n_tiles, ntx, tile_w, tile_h,
-    # chunk, alpha_min, alpha_max, out, stream
-    "webdgs_importance": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
-                          _P),
+    # alpha_min, alpha_max, out, stream
+    "webdgs_importance": (_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P),
+    # tile_w, tile_h, out (5 ints: threads, shared bytes, CTAs per SM,
+    # registers, CTAs per tile)
+    "webdgs_importance_occupancy": (_I, _I, _P),
 }
 
 

@@ -13,12 +13,13 @@ Per view, at the metric resolution:
      (``ops/segsum.py``, one row), averaged over the views.
 
 Every view renders with its own camera.  On a CPU tensor
-:func:`entry_counts` runs :func:`entry_counts_plain`, blocked like the
-kernel: all tiles in parallel, chunks of ``settings.chunk`` entries, the
-alpha test of ``rasterize_tiles_plain`` (``_chunk_alpha``), tiles with no
-flagged pixel skipped and chunks past the largest flagged n_contrib never
-evaluated.  On a CUDA tensor it launches the kernel or raises.  Counts are
-integers <= tile_px, so every sum is exact in float32.
+:func:`entry_counts` runs :func:`entry_counts_plain`, which splits the
+work as the kernel does where that is cheap: each tile's range clamped to
+[0, E], and only its flagged pixels with n_contrib >= 1 walked, each
+through the first min(n_contrib, range) entries, with the alpha test of
+``rasterize_tiles_plain`` (``_chunk_alpha``).  On a CUDA tensor it
+launches the kernel or raises; neither reads anything back to the host.
+Counts are integers <= tile_px, so every sum is exact in float32.
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ from webdgs_tpu_torch.ops import rasterize as raster_ops
 from webdgs_tpu_torch.ops.projection import project_gaussians
 from webdgs_tpu_torch.ops.segsum import segment_reduce_entries
 
-# rows the kernel stages per chunk (cx, cy, conic, op, extents) and the
-# shared memory a launch may use without an opt-in attribute
-_STAGE_ROWS = 8
-_SMEM_BYTES = 48 * 1024
+# the kernel's tile limit: its record list takes 24 bytes of shared memory
+# per pixel and its scan of the pixels' vote groups one warp (32 groups)
+_MAX_TILE_PX = 1024
+# (pixel, entry) pairs per batch of the plain version (its memory bound)
+_PLAIN_PAIRS = 1 << 22
 
 
 def metric_flag_map(pred: torch.Tensor, target: torch.Tensor,
@@ -72,56 +74,62 @@ def _check_inputs(attrs16, tile_offsets, pix_tiles, ntx, nty, settings):
         if t.device != attrs16.device:
             raise ValueError(f"{name} is on {t.device}, attrs16 on "
                              f"{attrs16.device}")
-    if not 0 < settings.tile_px <= 1024 or settings.tile_px % 32:
+    if settings.tile_px % 32:
         raise ValueError(f"tile of {settings.tile_px} pixels: the kernel "
-                         "takes a multiple of 32, at most 1024")
-    smem = 4 * (_STAGE_ROWS + settings.tile_px // 32) * settings.chunk
-    if not 0 < settings.chunk or smem > _SMEM_BYTES:
-        raise ValueError(f"chunk {settings.chunk} needs {smem} bytes of "
-                         f"shared memory, more than {_SMEM_BYTES}")
-    # the kernel reads attrs16 through these offsets: keep them in bounds
-    lo, hi = torch.stack(torch.aminmax(tile_offsets)).tolist()
-    if lo < 0 or hi > attrs16.shape[1]:
-        raise ValueError(f"tile_offsets span [{lo}, {hi}], outside the "
-                         f"{attrs16.shape[1]} entries of attrs16")
+                         "votes in whole warps, so it takes a multiple of 32")
+    if not 0 < settings.tile_px <= _MAX_TILE_PX:
+        raise ValueError(f"tile of {settings.tile_px} pixels: the kernel's "
+                         "record list and warp scan take at most "
+                         f"{_MAX_TILE_PX}")
+    if settings.chunk <= 0:
+        raise ValueError(f"chunk {settings.chunk} must be positive")
 
 
 def entry_counts_plain(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
                        pix_tiles: torch.Tensor, num_tiles_x: int,
                        num_tiles_y: int,
                        settings: RenderSettings) -> torch.Tensor:
-    """Plain torch version of the kernel, (E,) float32."""
+    """Plain torch version of the kernel, (E,) float32.  Each tile's range
+    is clamped to 0 <= uo <= end <= E, as the kernel clamps it; only the
+    pixels that can count (flagged, n_contrib >= 1: the kernel's records)
+    are walked, ``settings.chunk`` entries at a time."""
     dev = attrs16.device
-    n_tiles = num_tiles_x * num_tiles_y
     k = settings.chunk
     e_len = attrs16.shape[1]
-
-    flagged = pix_tiles[..., 0:1] > 0.0  # (T, P, 1)
-    n_contrib = pix_tiles[..., 1:2]
-    # entries past every flagged pixel's last contributor never count; a
-    # tile with no flagged pixel has nothing to count
-    max_nc = torch.where(flagged, n_contrib, 0.0).amax(dim=(1, 2)).to(
-        torch.int64)
-    uo = tile_offsets[:-1].to(torch.int64)
-    live = torch.minimum(tile_offsets[1:].to(torch.int64) - uo, max_nc)
-    nch = (live + k - 1) // k
-    pxf, pyf = raster_ops._pixel_coords(num_tiles_x, n_tiles, settings, dev)
-    lane = torch.arange(k, dtype=torch.int64, device=dev)
-
     out = torch.zeros((e_len,), dtype=torch.float32, device=dev)
-    n_chunks = int(nch.max()) if n_tiles else 0
-    for c in range(n_chunks):
-        tl = torch.nonzero(c < nch).squeeze(1)
-        sl = uo[tl, None] + c * k + lane  # (t, K) entry slots
-        in_range = c * k + lane < live[tl, None]
-        sub = attrs16[:, torch.clamp(sl, max=e_len - 1)]  # (16, t, K)
-        sub = sub.permute(1, 0, 2)[:, :, None, :]  # (t, 16, 1, K)
-        _, _, _, _, keep = raster_ops._chunk_alpha(sub, pxf[tl], pyf[tl],
-                                                   settings)
-        pos = (c * k + lane + 1).to(torch.float32)  # 1-based in the range
-        mask = keep & (pos <= n_contrib[tl]) & flagged[tl]
-        counts = mask.sum(dim=1).to(torch.float32)  # (t, K)
-        out[sl[in_range]] = counts[in_range]
+
+    off = tile_offsets.to(torch.int64)
+    uo = off[:-1].clamp(0, e_len)
+    cnt = torch.maximum(off[1:], uo).clamp(max=e_len) - uo
+    nc = pix_tiles[..., 1]
+    tile, p = torch.nonzero((pix_tiles[..., 0] > 0.0) & (nc >= 1.0),
+                            as_tuple=True)
+    # each pixel's entries: positions 1 .. min(n_contrib, range)
+    walk = torch.minimum(nc[tile, p].clamp(max=float(e_len)).to(torch.int64),
+                         cnt[tile])
+    if walk.numel() == 0:
+        return out
+    start = uo[tile]
+    tw = settings.tile_w
+    pxf = ((tile % num_tiles_x) * tw + p % tw).to(torch.float32) + 0.5
+    pyf = ((tile // num_tiles_x) * settings.tile_h + p // tw).to(
+        torch.float32) + 0.5
+    rows = attrs16[:raster_ops.ROW_EY + 1]  # the rows the alpha test reads
+    lane = torch.arange(k, dtype=torch.int64, device=dev)
+    batch = max(1, _PLAIN_PAIRS // k)
+    for c in range(-(-int(walk.max()) // k)):
+        sel = torch.nonzero(walk > c * k).squeeze(1)
+        for b in range(0, sel.shape[0], batch):
+            s = sel[b:b + batch]
+            slots = start[s, None] + c * k + lane  # (f, K)
+            sub = rows[:, slots.clamp(max=e_len - 1)]  # (11, f, K)
+            sub = sub.permute(1, 0, 2)[:, :, None, :]  # (f, 11, 1, K)
+            keep = raster_ops._chunk_alpha(sub, pxf[s, None, None],
+                                           pyf[s, None, None], settings)[4]
+            hit = keep[:, 0] & (c * k + lane < walk[s, None])
+            idx = slots[hit]
+            out.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float32,
+                                              device=dev))
     return out
 
 
@@ -138,8 +146,8 @@ def _entry_counts_cuda(attrs16, tile_offsets, pix_tiles, ntx, nty,
         err = lib.webdgs_importance(
             attrs16.data_ptr(), attrs16.shape[1], tile_offsets.data_ptr(),
             pix_tiles.data_ptr(), n_tiles, ntx, settings.tile_w,
-            settings.tile_h, settings.chunk, settings.alpha_min,
-            settings.alpha_max, out.data_ptr(), stream)
+            settings.tile_h, settings.alpha_min, settings.alpha_max,
+            out.data_ptr(), stream)
     _build.check(err, "entry_counts")
     entry_counts.kernel_launches += 1
     return out
