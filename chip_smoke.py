@@ -29,6 +29,16 @@ turns with the importance kernel at both metric views (bench, densify),
 back to back and queued: every slot must be equal to it and this one
 faster in every pairing.  ``--ablate-imp`` times the copies of the
 importance kernel that IMP_VARIANTS describe at both views.
+``--before-expand PATH`` builds an earlier expand.cu (for example ``git
+show dcc7ac9:webdgs_tpu_torch/csrc/expand.cu``) and times it in turns with
+the expand kernel at its three shapes (bench frame, 1M frame, densify
+view), back to back and queued: every slot must be equal to it, and this
+kernel alone faster in every queued pairing (no slower on the mean at the
+bench frame).  ``--before-loss PATH`` does the same for an earlier
+tile_loss.cu at the bench and 1M training steps: all 8 dpix channels must
+be bit-identical to it and this one faster in every queued pairing.
+``--ablate-expand`` and ``--ablate-loss`` time the copies of those kernels
+that EXPAND_VARIANTS and LOSS_VARIANTS describe.
 
 Phases (any failure raises, and the script exits non-zero with no result):
   1. device: CUDA must be available; prints the card's name and power limit;
@@ -36,7 +46,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      checkout (nvcc, sm_90a) and prints the build time;
   3. kernels: each kernel against its plain torch version on the card, at
      the shapes the bench frame and the bench training step give it (100k
-     random Gaussians, seed 0, 800x600, camera at (0, 0, -8)), and the
+     random Gaussians, seed 0, 800x600, camera at (0, 0, -8)); expand and
+     tile loss also queued, with their launch shapes, and their wrappers
+     run in sync debug mode "error"; and the
      importance kernel at the bench scene's 400x300 metric view (equal to
      its plain version on every slot, also queued, with its launch shape
      and registers, and run in sync debug mode "error"), with both times, each kernel since
@@ -62,8 +74,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      state twice giving bit-identical parameters, and a small step on the
      card matching the CPU;
   6. realistic size: one frame and 3 train steps of 1M Gaussians at
-     sh_deg 3, 1920x1080, and the forward and backward kernels against
-     their plain versions at that frame's and step's inputs;
+     sh_deg 3, 1920x1080, and the forward, backward, tile-loss and expand
+     kernels against their plain versions at that frame's and step's
+     inputs;
   7. server: a view-mode ViewerServer on 127.0.0.1 answers 3 JPEG frames,
      a control post and /stats over HTTP;
   8. the entry point: ``python -m webdgs_tpu_torch train --no-densify`` on
@@ -76,8 +89,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
      the synchronizing calls of each event counted, none of them from the
      segment sum, the raster wrappers or the importance counts), the
      forward kernel matches and
-     the importance kernel equals its plain version on every slot of one
-     960x540 metric view of the post-event state and the
+     the importance and expand kernels equal their plain versions on every
+     slot of one 960x540 metric view of the post-event state and the
      one-row segment sum of its counts matches its plain version there,
      and a small event on the card matches the same event on the CPU;
  10. ``train`` with densification and ``export`` on the synthetic dataset:
@@ -312,7 +325,7 @@ def importance_check(label: str, margs, n_valid: int, plain_iters: int,
     public wrapper run in sync debug mode "error".  Times the kernel back
     to back (in turns with its plain version) and queued, and returns
     both times, the bound from these inputs, the launch shape and the
-    view's load.  With BEFORE_IMP, the earlier kernel too, in turns with
+    view's load.  With BEFORE["imp"], the earlier kernel too, in turns with
     this one, back to back and queued: every slot equal and this one
     faster in every pairing (queued only, where ``host_bound``).  Each
     copy in IMP_ABLATIONS is timed."""
@@ -385,9 +398,9 @@ def importance_check(label: str, margs, n_valid: int, plain_iters: int,
           f"bit-identical repeat; sync debug mode \"error\" passed; kernel "
           f"{k_ms:.4f} ms, queued {dev_ms:.4f} ms, plain {p_ms:.4f} ms; "
           f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
-    if BEFORE_IMP is not None:
+    if "imp" in BEFORE:
         def before():
-            return BEFORE_IMP(*margs)
+            return BEFORE["imp"](*margs)
         same = torch.equal(before(), ik)
         # in turns: new, before, new, before
         b2b = [cuda_ms(f, 50) for f in (kernel, before, kernel, before)]
@@ -598,7 +611,80 @@ def load_imp(so_path):
     return run
 
 
-# --ablate-imp: copies of the importance kernel's source with one part
+def expand_runner(lib, what: str):
+    """``webdgs_expand_fields`` of a loaded library (one C interface since
+    the first commit).  Returns a function of (words, counts, e_cap) that
+    runs it as the port's wrapper does (the count cumsum, the outputs, the
+    launch); its ``launch`` is the bare launch on a given cumsum and
+    outputs."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    fn = lib.webdgs_expand_fields
+    fn.argtypes = _build.SIGNATURES["webdgs_expand_fields"]
+    fn.restype = ctypes.c_int
+
+    def launch(words, cum, e_cap, out_words, out_ids):
+        err = fn(words.data_ptr(), cum.data_ptr(), words.shape[1], e_cap,
+                 out_words.data_ptr(), out_ids.data_ptr(),
+                 torch.cuda.current_stream(words.device).cuda_stream)
+        check(err == 0, f"{what}: CUDA error {err} at launch")
+
+    def run(words, counts, e_cap):
+        out_words = torch.empty((words.shape[0], e_cap), dtype=torch.int32,
+                                device=words.device)
+        out_ids = torch.empty((e_cap,), dtype=torch.int32,
+                              device=words.device)
+        launch(words, torch.cumsum(counts, 0, dtype=torch.int32), e_cap,
+               out_words, out_ids)
+        return out_words, out_ids
+    run.launch = launch
+    return run
+
+
+def load_expand(so_path):
+    """A library holding ``webdgs_expand_fields``, loaded on its own: see
+    expand_runner."""
+    import ctypes
+    return expand_runner(ctypes.CDLL(str(so_path)), str(so_path))
+
+
+def loss_runner(lib, what: str):
+    """``webdgs_tile_loss`` of a loaded library (one C interface since the
+    first commit).  Returns a function of (out, target, img_w, img_h, ntx,
+    nty, cfg, settings) that runs it as the port's wrapper does: (dpix,
+    per-tile sums)."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    fn = lib.webdgs_tile_loss
+    fn.argtypes = _build.SIGNATURES["webdgs_tile_loss"]
+    fn.restype = ctypes.c_int
+
+    def run(out, target, img_w, img_h, ntx, nty, cfg, settings):
+        dpix = torch.empty_like(out)
+        sums = torch.empty((ntx * nty, 4), dtype=torch.float32,
+                           device=out.device)
+        bg = settings.background
+        err = fn(out.data_ptr(), target.data_ptr(), ntx * nty, ntx,
+                 settings.tile_w, settings.tile_h, img_w, img_h,
+                 cfg.lambda_l1, cfg.lambda_l2, cfg.lambda_dssim, cfg.c1,
+                 cfg.c2, bg[0], bg[1], bg[2], dpix.data_ptr(),
+                 sums.data_ptr(),
+                 torch.cuda.current_stream(out.device).cuda_stream)
+        check(err == 0, f"{what}: CUDA error {err} at launch")
+        return dpix, sums
+    return run
+
+
+def load_loss(so_path):
+    """A library holding ``webdgs_tile_loss``, loaded on its own: see
+    loss_runner."""
+    import ctypes
+    return loss_runner(ctypes.CDLL(str(so_path)), str(so_path))
+
+
+# --ablate-imp:copies of the importance kernel's source with one part
 # changed, as BWD_VARIANTS below (timing probes that keep the function, so
 # each is also compared with the kernel on every slot).  Of this
 # checkout's csrc/importance.cu:
@@ -684,20 +770,51 @@ BEFORE_BWD_VARIANTS = {
 }
 
 
-# the raster kernels that build_variants builds copies of: kind -> (stem
-# of the built file, loader)
+# --ablate-expand: copies of the expand kernel's source with one part
+# changed, as BWD_VARIANTS below (timing probes that keep the function, so
+# each is also compared with the kernel on every slot).  Of this
+# checkout's csrc/expand.cu:
+EXPAND_VARIANTS = {
+    # every span searches the cumsum in global memory, none is staged
+    "no_window": (("if (last < kWindow) {", "if (false) {"),),
+    # each new owner by bisection instead of probing the next Gaussians
+    "bisect": (("if (win[j] <= e + v) j = next_above(win, j, last, e + v);",
+                "if (win[j] <= e + v) j = first_above(win, j + 1, last, "
+                "e + v);"),),
+    "scalar_stores": (("if (aligned && n_in >= kVec) {", "if (false) {"),),
+    # the registers the compiler picks (44): 5 CTAs per SM
+    "ctas_any": (("constexpr int kCtasPerSm = 8;",
+                  "constexpr int kCtasPerSm = 1;"),),
+}
+# --ablate-loss: the same for the tile-loss kernel, of csrc/tile_loss.cu
+LOSS_VARIANTS = {
+    "rows_2": (("constexpr int kRows = 4;", "constexpr int kRows = 2;"),),
+    # each staged element's loads waited for before the next element's
+    "stage_1": (("constexpr int kStage = 4;", "constexpr int kStage = 1;"),),
+    # the registers the compiler picks, and at most 64
+    "regs_any": (("constexpr int kMinCtas = 3;",
+                  "constexpr int kMinCtas = 1;"),),
+    "regs_64": (("constexpr int kMinCtas = 3;",
+                 "constexpr int kMinCtas = 4;"),),
+}
+
+
+# the kernels that build_variants builds copies of: kind -> (stem of the
+# built file, loader)
 VARIANT_KINDS = {"fwd": ("rasterize_fwd", load_fwd),
                  "bwd": ("rasterize_bwd", load_bwd),
-                 "imp": ("importance", load_imp)}
+                 "imp": ("importance", load_imp),
+                 "expand": ("expand", load_expand),
+                 "loss": ("tile_loss", load_loss)}
 
 
 def build_variants(jobs) -> dict:
     """Build kernels beside the library, every nvcc call started at once.
-    ``jobs``: (kind, name, source, ((text, replacement), ...)), kind "fwd",
-    "bwd" or "imp"; a source with substitutions is written with them into
-    the build directory first.  Returns (kind, name) -> (the function
-    load_fwd, load_bwd or load_imp gives, registers per thread of its
-    kernels' largest)."""
+    ``jobs``: (kind, name, source, ((text, replacement), ...)), kind a key
+    of VARIANT_KINDS; a source with substitutions is written with them
+    into the build directory first.  Returns (kind, name) -> (the function
+    the kind's loader gives, registers per thread of its kernels'
+    largest)."""
     import concurrent.futures
     from pathlib import Path
     from webdgs_tpu_torch import _build
@@ -723,16 +840,18 @@ def build_variants(jobs) -> dict:
         for key, (so, log) in built.items()}
 
 
-# set by --before-bwd: an earlier backward kernel, timed beside this one
-BEFORE_BWD = None
+# set by --before-bwd, --before-fwd, --before-imp, --before-expand and
+# --before-loss: kind -> an earlier kernel of that kind (as its loader
+# gives it), timed beside the current one
+BEFORE: dict = {}
 # set by --ablate-bwd: name -> (variant, its registers), timed beside it
 BWD_ABLATIONS: dict = {}
-# set by --before-fwd and --ablate-fwd: the same for the forward kernel
-BEFORE_FWD = None
+# set by --ablate-fwd, --ablate-imp, --ablate-expand and --ablate-loss:
+# the same for the forward, importance, expand and tile-loss kernels
 FWD_ABLATIONS: dict = {}
-# set by --before-imp and --ablate-imp: the same for the importance kernel
-BEFORE_IMP = None
 IMP_ABLATIONS: dict = {}
+EXPAND_ABLATIONS: dict = {}
+LOSS_ABLATIONS: dict = {}
 
 
 def forward_check(label: str, attrs16, tile_offsets, ntx: int, nty: int,
@@ -748,7 +867,7 @@ def forward_check(label: str, attrs16, tile_offsets, ntx: int, nty: int,
     orders decide differently.  Times the kernel back to back
     (in turns with its plain version) and with the launch queue filled
     first, and gives the bound from the pairs these inputs make it
-    evaluate, the tiles' work and the launch shape.  With BEFORE_FWD, the
+    evaluate, the tiles' work and the launch shape.  With BEFORE["fwd"], the
     earlier kernel too, on the same inputs, in turns with this one: all 8
     channels must be bit-identical and this one faster in every pairing.
     With ``ablate``, each copy in FWD_ABLATIONS, timed."""
@@ -821,9 +940,9 @@ def forward_check(label: str, attrs16, tile_offsets, ntx: int, nty: int,
           f"bit-identical repeat; kernel {ms:.4f} ms, queued {dev_ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms "
           f"({bound[1]})", flush=True)
-    if BEFORE_FWD is not None:
+    if "fwd" in BEFORE:
         def before():
-            return BEFORE_FWD(*args)
+            return BEFORE["fwd"](*args)
         same = torch.equal(before(), rk)
         # in turns: new, before, new, before
         b2b = [cuda_ms(f, iters) for f in (kernel, before, kernel, before)]
@@ -853,6 +972,254 @@ def forward_check(label: str, attrs16, tile_offsets, ntx: int, nty: int,
         print(f"[kernels] rasterize_tiles {label}, variant {name} (a timing "
               f"probe): {regs} registers, {ctas} CTAs per SM; bit-identical "
               f"{same}; {v_ms:.4f} ms, queued {v_dev:.4f} ms", flush=True)
+    return res
+
+
+def expansion_at(scene, cam, w: int, h: int, settings, cap: int | None):
+    """The expand kernel's inputs where ``bin_splats`` expands ``scene``
+    seen from ``cam`` at capacity ``cap`` (None: the heuristic capacity a
+    metric view takes): (words (5, N), counts (N,), e_cap)."""
+    import torch
+    from webdgs_tpu_torch.ops import binning
+    from webdgs_tpu_torch.ops.projection import project_gaussians
+    ntx, _ = binning.tile_grid(w, h, settings)
+    with torch.no_grad():
+        attrs, aux = project_gaussians(scene.params(), scene.alive, cam, w,
+                                       h, scene.sh_deg, settings)
+        if cap is None:
+            cap = binning.entry_capacity(aux.num_tiles.shape[0], settings)
+        words, counts, _, _ = binning.expansion_inputs(aux, ntx, cap, attrs,
+                                                       settings)
+    return words, counts, cap
+
+
+def expand_check(label: str, words, counts, e_cap: int, plain_iters: int,
+                 no_slower: bool = False) -> dict:
+    """The expand kernel against ``expand_fields_plain`` on one shape's
+    inputs: every slot equal, two runs bit-identical, and the public
+    wrapper run in sync debug mode "error".  Times the wrapper (the count
+    cumsum and the kernel) back to back, in turns with its plain version,
+    and queued, and the kernel alone queued on a precomputed cumsum; gives
+    the bound from these inputs.  With BEFORE["expand"], the earlier kernel
+    too, in turns with this one, both through the same runner
+    (expand_runner): every slot equal, and this kernel alone faster in
+    every queued pairing -- with ``no_slower``, no slower on the
+    mean of the pairings (at the light bench frame both sit near the
+    launch latency).  Each copy in EXPAND_ABLATIONS is timed."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    from webdgs_tpu_torch.ops import expand
+    ek = expand.expand_fields(words, counts, e_cap)
+    ek2 = expand.expand_fields(words, counts, e_cap)
+    ep = expand.expand_fields_plain(words, counts, e_cap)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(ek, ek2)),
+          f"expand_fields ({label}) is not bit-identical")
+    n_diff = sum(int((a != b).sum()) for a, b in zip(ek, ep))
+    check(n_diff == 0, f"expand_fields ({label}): {n_diff} values differ "
+          "from the plain version")
+    err = max(float((a - b).abs().max()) for a, b in zip(ek, ep))
+    del ek2, ep
+    # the wrapper never waits for the device
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ek3 = expand.expand_fields(words, counts, e_cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(all(torch.equal(a, b) for a, b in zip(ek, ek3)),
+          f"expand_fields ({label}) differs in sync debug mode")
+    del ek3
+    n, total = words.shape[1], int(counts.sum())
+    run = expand_runner(_build.library(), "csrc/expand.cu")
+    cum = torch.cumsum(counts, 0, dtype=torch.int32)
+    ow, oi = torch.empty_like(ek[0]), torch.empty_like(ek[1])
+
+    def kernel():
+        return expand._expand_fields_cuda(words, counts, e_cap)
+
+    def bare():
+        run.launch(words, cum, e_cap, ow, oi)
+    ms, plain_ms = time_pair(
+        kernel, lambda: expand.expand_fields_plain(words, counts, e_cap), 50,
+        plain_iters)
+    dev_ms, bare_ms = queued_ms(kernel, 50), queued_ms(bare, 50)
+    # the counts and the words of the Gaussians that own a slot in, (5, E)
+    # words + (E,) ids out
+    owners = int(((counts > 0) & (cum - counts < e_cap)).sum())
+    bound = bound_ms(4 * (n + 5 * owners + 6 * e_cap), 0)
+    shape = (ctypes.c_int * 6)()
+    _build.check(_build.library().webdgs_expand_occupancy(shape),
+                 "webdgs_expand_occupancy")
+    launch = dict(zip(("threads", "smem_bytes", "ctas_per_sm", "registers",
+                       "slots_per_cta", "window"), shape))
+    res = {"err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+           "kernel_device_ms": bare_ms, "bound": bound, "gaussians": n,
+           "owners": owners, "slots": e_cap, "valid": total,
+           "launch": launch}
+    print(f"[kernels] expand_fields {label}: {n} Gaussians ({owners} own a "
+          f"slot), {total} valid of {e_cap} slots; launch {launch}; every slot equal to the "
+          f"plain version; bit-identical repeat; sync debug mode \"error\" "
+          f"passed; wrapper "
+          f"{ms:.4f} ms, queued {dev_ms:.4f} ms, the kernel alone queued "
+          f"{bare_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    if "expand" in BEFORE:
+        before = BEFORE["expand"]
+        same = all(torch.equal(a, b)
+                   for a, b in zip(before(words, counts, e_cap), ek))
+
+        def new_wrapped():
+            return run(words, counts, e_cap)
+
+        def before_wrapped():
+            return before(words, counts, e_cap)
+
+        def before_bare():
+            before.launch(words, cum, e_cap, ow, oi)
+        # in turns: new, before, new, before; one host path for both
+        b2b = [cuda_ms(f, 50) for f in (new_wrapped, before_wrapped,
+                                        new_wrapped, before_wrapped)]
+        queued = [queued_ms(f, 50) for f in (new_wrapped, before_wrapped,
+                                             new_wrapped, before_wrapped)]
+        alone = [queued_ms(f, 50) for f in (bare, before_bare, bare,
+                                            before_bare)]
+        res["before"] = {"equal": same, "ms": b2b[1::2],
+                         "device_ms": queued[1::2],
+                         "kernel_device_ms": alone[1::2],
+                         "new_ms": b2b[0::2], "new_device_ms": queued[0::2],
+                         "new_kernel_device_ms": alone[0::2]}
+        print(f"[kernels] expand_fields {label}, the earlier kernel on the "
+              f"same inputs: every slot equal {same}; back to back "
+              f"{b2b[1]:.4f} / {b2b[3]:.4f} ms (this one {b2b[0]:.4f} / "
+              f"{b2b[2]:.4f}); queued {queued[1]:.4f} / {queued[3]:.4f} ms "
+              f"(this one {queued[0]:.4f} / {queued[2]:.4f}); the kernel "
+              f"alone queued {alone[1]:.4f} / {alone[3]:.4f} ms (this one "
+              f"{alone[0]:.4f} / {alone[2]:.4f})", flush=True)
+        check(same, f"expand_fields ({label}) differs from the earlier "
+              "kernel")
+        new, old = alone[0::2], alone[1::2]
+        check(sum(new) <= sum(old) if no_slower else max(new) < min(old),
+              f"expand_fields ({label}) is "
+              f"{'slower than' if no_slower else 'not faster than'} the "
+              f"earlier kernel: {res['before']}")
+    for name, (variant, regs) in EXPAND_ABLATIONS.items():
+        same = all(torch.equal(a, b)
+                   for a, b in zip(variant(words, counts, e_cap), ek))
+
+        def run_variant(variant=variant):
+            variant.launch(words, cum, e_cap, ow, oi)
+        v_dev = queued_ms(run_variant, 50)
+        print(f"[kernels] expand_fields {label}, variant {name} (a timing "
+              f"probe): {regs} registers; every slot equal {same}; the "
+              f"kernel alone queued {v_dev:.4f} ms", flush=True)
+    return res
+
+
+def loss_check(label: str, out, target, w: int, h: int, ntx: int, nty: int,
+               cfg, settings, plain_iters: int) -> dict:
+    """The tile-loss kernel against ``tile_loss_gradient_plain`` on one
+    step's forward tiles and target: dpix within LOSS_ATOL, the summed
+    metric partials within 1e-5 relative, two runs bit-identical, and the
+    wrapper run in sync debug mode "error".  Times the kernel back to back
+    (in turns with its plain version) and queued, and gives the bound from
+    these inputs.  With BEFORE["loss"], the earlier kernel too, in turns
+    with this one, both through the same runner (loss_runner): all 8 dpix
+    channels bit-identical and this one faster in every queued pairing.  Each copy in LOSS_ABLATIONS is timed."""
+    import ctypes
+    import torch
+    from webdgs_tpu_torch import _build
+    from webdgs_tpu_torch.ops import tile_loss
+    args = (out, target, w, h, ntx, nty, cfg, settings)
+    dk, sk = tile_loss.tile_loss_tiles(*args)
+    dk2, sk2 = tile_loss.tile_loss_tiles(*args)
+    dp, sp = tile_loss.tile_loss_gradient_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(dk, dk2) and torch.equal(sk, sk2),
+          f"tile loss ({label}) is not bit-identical across runs")
+    err = float((dk - dp).abs().max())
+    sums_rel = float(((sk.sum(0) - sp.sum(0)).abs()
+                      / sp.sum(0).abs().clamp(min=1e-30)).max())
+    check(err <= LOSS_ATOL and sums_rel <= 1e-5,
+          f"tile loss ({label}): dpix err {err}, metric sums rel err "
+          f"{sums_rel}")
+    check(float(dk[:, 0:3].abs().max()) > 0,
+          f"tile loss ({label}): the gradient is all 0")
+    del dk2, sk2, dp, sp
+    # the wrapper never waits for the device
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dk3, sk3 = tile_loss.tile_loss_tiles(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(dk3, dk) and torch.equal(sk3, sk),
+          f"tile loss ({label}) differs in sync debug mode")
+    del dk3, sk3
+
+    def kernel():
+        return tile_loss._tile_loss_cuda(*args)
+    ms, plain_ms = time_pair(
+        kernel, lambda: tile_loss.tile_loss_gradient_plain(*args), 50,
+        plain_iters)
+    dev_ms = queued_ms(kernel, 50)
+    n_tiles, npx = ntx * nty, settings.tile_px
+    # 4 tile channels + the target in, (T, 8, P) + (T, 4) sums out; about
+    # 150 operations per pixel and channel (5 box sums of 25, SSIM, grad)
+    bound = bound_ms(4 * (4 * n_tiles * npx + 3 * w * h + 8 * n_tiles * npx
+                          + 4 * n_tiles), 150 * 3 * w * h)
+    shape = (ctypes.c_int * 5)()
+    _build.check(_build.library().webdgs_tile_loss_occupancy(
+        settings.tile_w, settings.tile_h, shape),
+        "webdgs_tile_loss_occupancy")
+    launch = dict(zip(("threads", "smem_bytes", "ctas_per_sm", "registers",
+                       "rows_per_thread"), shape))
+    res = {"err": err, "sums_rel": sums_rel, "ms": ms, "plain_ms": plain_ms,
+           "device_ms": dev_ms, "bound": bound, "tiles": n_tiles,
+           "launch": launch}
+    print(f"[kernels] tile_loss {label}: {n_tiles} tiles of {npx} pixels; "
+          f"launch {launch}; max abs err {err:.3e} (<= {LOSS_ATOL}), metric "
+          f"sums rel err {sums_rel:.2e}; bit-identical repeat; sync debug "
+          f"mode \"error\" passed; kernel {ms:.4f} ms, queued {dev_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})",
+          flush=True)
+    if "loss" in BEFORE:
+        run = loss_runner(_build.library(), "csrc/tile_loss.cu")
+
+        def new():
+            return run(*args)
+
+        def before():
+            return BEFORE["loss"](*args)
+        db, sb = before()
+        same = torch.equal(db, dk)
+        sums_diff = float(((sb.sum(0) - sk.sum(0)).abs()
+                           / sk.sum(0).abs().clamp(min=1e-30)).max())
+        del db, sb
+        # in turns: new, before, new, before; one host path for both
+        b2b = [cuda_ms(f, 50) for f in (new, before, new, before)]
+        queued = [queued_ms(f, 50) for f in (new, before, new, before)]
+        res["before"] = {"bit_identical": same, "sums_rel_diff": sums_diff,
+                         "ms": b2b[1::2], "device_ms": queued[1::2],
+                         "new_ms": b2b[0::2], "new_device_ms": queued[0::2]}
+        print(f"[kernels] tile_loss {label}, the earlier kernel on the same "
+              f"inputs: all 8 dpix channels bit-identical {same}, summed "
+              f"metric partials rel diff {sums_diff:.2e}; back to back "
+              f"{b2b[1]:.4f} / {b2b[3]:.4f} ms (this one {b2b[0]:.4f} / "
+              f"{b2b[2]:.4f}); queued {queued[1]:.4f} / {queued[3]:.4f} ms "
+              f"(this one {queued[0]:.4f} / {queued[2]:.4f})", flush=True)
+        check(same, f"tile loss ({label}) dpix differs from the earlier "
+              "kernel")
+        check(max(queued[0::2]) < min(queued[1::2]),
+              f"tile loss ({label}) is not faster than the earlier kernel: "
+              f"{res['before']}")
+    for name, (variant, regs) in LOSS_ABLATIONS.items():
+        def run_variant(variant=variant):
+            return variant(*args)
+        same = torch.equal(run_variant()[0], dk)
+        v_dev = queued_ms(run_variant, 50)
+        print(f"[kernels] tile_loss {label}, variant {name} (a timing "
+              f"probe): {regs} registers; dpix bit-identical {same}; queued "
+              f"{v_dev:.4f} ms", flush=True)
     return res
 
 
@@ -896,7 +1263,7 @@ def backward_check(label: str, inp: dict, settings, iters: int,
     back to back (in turns with its plain version) and with the launch
     queue filled first, and gives the bound from the pairs these inputs
     make the raster kernels evaluate, the tiles' work and the launch
-    shape.  With BEFORE_BWD, the earlier kernel too, on the same inputs, in
+    shape.  With BEFORE["bwd"], the earlier kernel too, on the same inputs, in
     turns with this one."""
     import ctypes
     import torch
@@ -950,9 +1317,9 @@ def backward_check(label: str, inp: dict, settings, iters: int,
           f"zero; kernel {ms:.4f} ms, queued {dev_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})",
           flush=True)
-    if BEFORE_BWD is not None:
+    if "bwd" in BEFORE:
         def before():
-            return BEFORE_BWD(*args)
+            return BEFORE["bwd"](*args)
         before_err = max_rel(before(), bk)
         # in turns: new, before, new, before
         b2b = [cuda_ms(f, iters) for f in (kernel, before, kernel, before)]
@@ -1326,6 +1693,9 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     fwd = forward_check(f"{mw}x{mh} densify view", margs[0], margs[1],
                         margs[3], margs[4], s1m, 10, 1, ties=True)
     imp = importance_check(f"{mw}x{mh} densify view", margs, n_valid, 1)
+    # the expansion of the same view (the heuristic capacity)
+    exp_view = expand_check(f"{mw}x{mh} densify view",
+                            *expansion_at(sc, mcam, mw, mh, s1m, None), 1)
     # the one-row segment sum an event launches once per view, on this
     # view's importance counts
     with torch.no_grad():
@@ -1336,7 +1706,8 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     del trainer, sc, margs, mbins, view_counts
     torch.cuda.empty_cache()
     return {"launches": launches, "events": events, "peak_gb": peak_gb,
-            "importance": imp, "segsum": seg, "forward": fwd}
+            "importance": imp, "segsum": seg, "forward": fwd,
+            "expand": exp_view}
 
 
 def small_event_phase(dev, settings) -> None:
@@ -1556,6 +1927,20 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--ablate-imp", action="store_true",
                     help="also time IMP_VARIANTS of the importance kernel "
                     "at both metric views")
+    ap.add_argument("--before-expand", metavar="EXPAND_CU",
+                    help="an earlier csrc/expand.cu (every commit's "
+                    "interface) to time beside the expand kernel at its "
+                    "three shapes; every slot must be equal")
+    ap.add_argument("--ablate-expand", action="store_true",
+                    help="also time EXPAND_VARIANTS of the expand kernel at "
+                    "its three shapes")
+    ap.add_argument("--ablate-loss", action="store_true",
+                    help="also time LOSS_VARIANTS of the tile-loss kernel "
+                    "at both training steps")
+    ap.add_argument("--before-loss", metavar="TILE_LOSS_CU",
+                    help="an earlier csrc/tile_loss.cu (every commit's "
+                    "interface) to time beside the tile-loss kernel at "
+                    "both training steps; dpix must be bit-identical")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1584,50 +1969,49 @@ def main(argv: list[str] | None = None) -> int:
         BEFORE_SEGSUM = build_before_segsum(args.before_segsum)
         print(f"[build] the earlier segment-sum kernel {args.before_segsum}",
               flush=True)
-    jobs = [("bwd", "before", args.before_bwd, ())] if args.before_bwd \
-        else []
+    befores = {"bwd": args.before_bwd, "fwd": args.before_fwd,
+               "imp": args.before_imp, "expand": args.before_expand,
+               "loss": args.before_loss}
+    jobs = [(kind, "before", path, ()) for kind, path in befores.items()
+            if path]
     if args.ablate_bwd:
         jobs += [("bwd", n, _build.CSRC / "rasterize_bwd.cu", subs)
                  for n, subs in BWD_VARIANTS.items()]
         if args.before_bwd:
             jobs += [("bwd", f"before_{n}", args.before_bwd, subs)
                      for n, subs in BEFORE_BWD_VARIANTS.items()]
-    if args.before_fwd:
-        jobs.append(("fwd", "before", args.before_fwd, ()))
     if args.ablate_fwd:
         jobs += [("fwd", n, _build.CSRC / "rasterize_fwd.cu", subs)
                  for n, subs in FWD_VARIANTS.items()]
-    if args.before_imp:
-        jobs.append(("imp", "before", args.before_imp, ()))
     if args.ablate_imp:
         jobs += [("imp", n, _build.CSRC / "importance.cu", subs)
                  for n, subs in IMP_VARIANTS.items()]
+    if args.ablate_expand:
+        jobs += [("expand", n, _build.CSRC / "expand.cu", subs)
+                 for n, subs in EXPAND_VARIANTS.items()]
+    if args.ablate_loss:
+        jobs += [("loss", n, _build.CSRC / "tile_loss.cu", subs)
+                 for n, subs in LOSS_VARIANTS.items()]
     if jobs:
-        global BEFORE_BWD, BEFORE_FWD, BEFORE_IMP
         built = build_variants(jobs)
-        for side, table, path in (("bwd", BWD_ABLATIONS, args.before_bwd),
-                                  ("fwd", FWD_ABLATIONS, args.before_fwd),
-                                  ("imp", IMP_ABLATIONS, args.before_imp)):
+        for kind, path in befores.items():
             if path:
-                before, regs = built.pop((side, "before"))
-                print(f"[build] the earlier {side} kernel {path}: {regs} "
+                BEFORE[kind], regs = built.pop((kind, "before"))
+                print(f"[build] the earlier {kind} kernel {path}: {regs} "
                       "registers", flush=True)
-                if side == "bwd":
-                    BEFORE_BWD = before
-                elif side == "fwd":
-                    BEFORE_FWD = before
-                else:
-                    BEFORE_IMP = before
-            table.update({n: v for (k, n), v in built.items() if k == side})
+        for kind, table in (("bwd", BWD_ABLATIONS), ("fwd", FWD_ABLATIONS),
+                            ("imp", IMP_ABLATIONS),
+                            ("expand", EXPAND_ABLATIONS),
+                            ("loss", LOSS_ABLATIONS)):
+            table.update({n: v for (k, n), v in built.items() if k == kind})
             if table:
-                print(f"[build] {side} variants: {sorted(table)}",
+                print(f"[build] {kind} variants: {sorted(table)}",
                       flush=True)
 
     import torch.nn.functional as F
     from webdgs_tpu_torch.config import RenderSettings, quantize_budget
     from webdgs_tpu_torch.core.camera import default_camera
-    from webdgs_tpu_torch.ops import (binning, expand, rasterize, segsum,
-                                      tile_loss)
+    from webdgs_tpu_torch.ops import binning, rasterize, segsum, tile_loss
     from webdgs_tpu_torch.ops.adam import init_adam_state
     from webdgs_tpu_torch.ops.loss import LossConfig
     from webdgs_tpu_torch.ops.projection import project_gaussians
@@ -1660,26 +2044,13 @@ def main(argv: list[str] | None = None) -> int:
           f"{demand} entries, capacity {e_cap}", flush=True)
     check(total == demand > 0, "bench frame has no entries")
 
-    ek = expand.expand_fields(words, counts, e_cap)
-    ep = expand.expand_fields_plain(words, counts, e_cap)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(ek, ep)),
-          "expand_fields kernel differs from its plain version")
-    expand_err = max(float((a - b).abs().max()) for a, b in zip(ek, ep))
-    expand_ms, expand_plain_ms = time_pair(
-        lambda: expand.expand_fields(words, counts, e_cap),
-        lambda: expand.expand_fields_plain(words, counts, e_cap), 50, 20)
-    print(f"[kernels] expand_fields: exact on all {e_cap} slots; "
-          f"kernel {expand_ms:.4f} ms, plain {expand_plain_ms:.4f} ms",
-          flush=True)
+    exp_bench = expand_check(f"{w}x{h} bench frame", words, counts, e_cap,
+                             20, no_slower=True)
 
     # the forward kernel at the viewer's capacity for the bench frame
     fwd = forward_check(f"{w}x{h} bench frame", attrs16, bins.tile_offsets,
                         ntx, nty, settings, 20, 3, ablate=True)
-    n_tiles, npx = ntx * nty, settings.tile_px
-    # expand: words + counts in, (5, E) words + (E,) ids out
-    expand_bound = bound_ms(4 * (6 * scene.capacity + 6 * e_cap), 0)
-    del ek, ep
+    del words, counts
 
     # --- 3b. the training kernels at the bench training step's inputs ---
     # capacity as bench.py sizes it: 1.2x the observed entries
@@ -1700,36 +2071,10 @@ def main(argv: list[str] | None = None) -> int:
         target_n = (own + torch.tensor(noise, dtype=torch.float32,
                                        device=dev)).contiguous()
 
-    dk, sk = tile_loss.tile_loss_tiles(tout, target_n, w, h, ntx, nty, cfg,
-                                       settings)
-    dk2, sk2 = tile_loss.tile_loss_tiles(tout, target_n, w, h, ntx, nty,
-                                         cfg, settings)
-    dp, sp = tile_loss.tile_loss_gradient_plain(tout, target_n, w, h, ntx,
-                                                nty, cfg, settings)
-    torch.cuda.synchronize()
-    check(torch.equal(dk, dk2) and torch.equal(sk, sk2),
-          "tile loss kernel is not bit-identical across runs")
-    loss_err = float((dk - dp).abs().max())
-    sums_rel = float(((sk.sum(0) - sp.sum(0)).abs()
-                      / sp.sum(0).abs().clamp(min=1e-30)).max())
-    check(loss_err <= LOSS_ATOL and sums_rel <= 1e-5,
-          f"tile loss: dpix err {loss_err}, metric sums rel err {sums_rel}")
-    check(float(dk[:, 0:3].abs().max()) > 0, "tile loss gradient is all 0")
-    loss_ms, loss_plain_ms = time_pair(
-        lambda: tile_loss.tile_loss_tiles(tout, target_n, w, h, ntx, nty,
-                                          cfg, settings),
-        lambda: tile_loss.tile_loss_gradient_plain(
-            tout, target_n, w, h, ntx, nty, cfg, settings), 50, 5)
-    # 4 tile channels + the target in, (T, 8, P) + (T, 4) sums out; about
-    # 150 operations per pixel and channel (5 box sums of 25, SSIM, grad)
-    loss_bound = bound_ms(4 * (4 * n_tiles * npx + 3 * w * h
-                               + 8 * n_tiles * npx + 4 * n_tiles),
-                          150 * 3 * w * h)
-    print(f"[kernels] tile_loss: max abs err {loss_err:.3e} (<= "
-          f"{LOSS_ATOL}), metric sums rel err {sums_rel:.2e}; bit-identical "
-          f"repeat; kernel {loss_ms:.4f} ms, plain {loss_plain_ms:.4f} ms; "
-          f"bound {loss_bound[0]:.4f} ms ({loss_bound[1]})", flush=True)
-
+    loss_bench = loss_check(f"{w}x{h} training step", tout, target_n, w, h,
+                            ntx, nty, cfg, settings, 5)
+    dk, _ = tile_loss.tile_loss_tiles(tout, target_n, w, h, ntx, nty, cfg,
+                                      settings)
     suffix = (torch.sum(dk[:, 0:4] * tout[:, 0:4], dim=1, keepdim=True)
               + dk[:, 4:5] * tout[:, 4:5])
     gpix5 = torch.cat([dk[:, 0:4], suffix], dim=1).contiguous()
@@ -1766,7 +2111,7 @@ def main(argv: list[str] | None = None) -> int:
     seg = segsum_check(f"{w}x{h} training step", bk, tbins.gauss_counts,
                        tbins.entry_source, tbins.entry_valid,
                        tbins.expansion_gauss, 5)
-    del dk, dk2, dp, bk, tfwd, a16g, fwd_g, g_auto
+    del dk, bk, tfwd, a16g, fwd_g, g_auto
     torch.cuda.empty_cache()
 
     # --- 3c. the importance kernel at the bench scene's metric view ---
@@ -1957,7 +2302,14 @@ def main(argv: list[str] | None = None) -> int:
                           s1m, 10, 1, ablate=True, ties=True)
     bwd1m = backward_check("1M sh3 1920x1080 training step", inp1m, s1m, 5,
                            1)
+    # the tile loss at the same step, and the expansion of that frame
+    loss1m = loss_check("1M sh3 1920x1080 training step", inp1m["fwd"],
+                        target1m, 1920, 1080, inp1m["ntx"], inp1m["nty"],
+                        LossConfig(), s1m, 1)
     del inp1m
+    exp1m = expand_check(
+        "1M sh3 1920x1080 frame",
+        *expansion_at(big, cam1m, 1920, 1080, s1m, cap1m), 1)
     torch.cuda.empty_cache()
     s_big, o_big = big, init_adam_state(big.params())
     torch.cuda.reset_peak_memory_stats()
@@ -2085,11 +2437,41 @@ def main(argv: list[str] | None = None) -> int:
                 "library_ms": lib_ms, "launches_densify": dlaunch[name],
                 **extra}
 
+    def expand_reading(r):
+        # one expand_check reading for the kernels line
+        return {"max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "library_ms": None,
+                "device_ms": r["device_ms"],
+                "kernel_device_ms": r["kernel_device_ms"],
+                "slots": r["slots"], "valid": r["valid"],
+                "launch": r["launch"], "before": r.get("before")}
+
+    def loss_reading(r):
+        # one loss_check reading for the kernels line
+        return {"max_abs_err": r["err"], "sums_rel_err": r["sums_rel"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None, "device_ms": r["device_ms"],
+                "launch": r["launch"], "before": r.get("before")}
+
     kernels = [
+        # at the bench frame; the 1M frame and the densify view beside it
         entry("expand_fields", "webdgs_tpu_torch/csrc/expand.cu",
-              "webdgs_tpu/ops/expand.py:63", expand_err, expand_ms,
-              expand_plain_ms, expand_bound, None,
-              launches_viewer=launches["expand_fields"]),
+              "webdgs_tpu/ops/expand.py:63", exp_bench["err"],
+              exp_bench["ms"], exp_bench["plain_ms"], exp_bench["bound"],
+              None,
+              launches_viewer=launches["expand_fields"],
+              # a step expands once, beside the backward raster; each
+              # metric view once
+              launches_per_event=(dlaunch["expand_fields"]
+                                  - dlaunch["rasterize_tiles_backward"])
+              // len(densify_res["events"]),
+              device_ms=exp_bench["device_ms"],
+              kernel_device_ms=exp_bench["kernel_device_ms"],
+              launch=exp_bench["launch"],
+              before=exp_bench.get("before"), frame_1m=expand_reading(exp1m),
+              densify_view=expand_reading(densify_res["expand"])),
         # at the bench frame; the 1M frame and the densify view beside it
         entry("rasterize_tiles", "webdgs_tpu_torch/csrc/rasterize_fwd.cu",
               "webdgs_tpu/ops/rasterize.py:239", fwd["err"], fwd["ms"],
@@ -2103,9 +2485,14 @@ def main(argv: list[str] | None = None) -> int:
               launch=fwd["launch"], tile_work=fwd["tile_work"],
               before=fwd.get("before"), frame_1m=reading(fwd1m),
               densify_view=reading(dfwd)),
+        # at the bench training step; the 1M step beside it
         entry("tile_loss", "webdgs_tpu_torch/csrc/tile_loss.cu",
-              "webdgs_tpu/ops/tile_loss.py:106", loss_err, loss_ms,
-              loss_plain_ms, loss_bound, None),
+              "webdgs_tpu/ops/tile_loss.py:106", loss_bench["err"],
+              loss_bench["ms"], loss_bench["plain_ms"], loss_bench["bound"],
+              None, sums_rel_err=loss_bench["sums_rel"],
+              device_ms=loss_bench["device_ms"],
+              launch=loss_bench["launch"],
+              before=loss_bench.get("before"), step_1m=loss_reading(loss1m)),
         # at the training step's inputs; the 1M sh3 / 1920x1080 step's
         # beside it
         entry("rasterize_tiles_backward",

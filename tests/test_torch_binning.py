@@ -19,6 +19,7 @@ from webdgs_tpu.ops.projection import project_gaussians as jproject
 from webdgs_tpu_torch.ops import binning as tbin
 from webdgs_tpu_torch.ops.expand import NWORDS, expand_fields
 
+from tests.test_torch_cuda import EXPAND_CASES, crafted_expand_case
 from tests.torch_parity import (aux_to_torch, attrs_to_torch, both_cameras,
                                 both_scenes, jax_settings, np_,
                                 numpy_scene, torch_settings)
@@ -51,6 +52,26 @@ def test_expand_fields_plain_matches_jax(n, e_cap, seed):
     np.testing.assert_array_equal(np_(tw)[:, :total],
                                   np.asarray(jw)[:, :total])
     # the port defines the slots past the total: id 0, words 0
+    assert not np_(tids)[total:].any() and not np_(tw)[:, total:].any()
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_expand_fields_crafted_cases_match_jax(case):
+    """The crafted cases of tests/test_torch_cuda.py (a run of 5,000
+    zero-count Gaussians, one Gaussian of 5,000 entries, total == e_cap,
+    every count 0, N = 1, trailing zero counts, an e_cap that is not a
+    multiple of 4) through the JAX kernel (interpret mode) and the port:
+    valid slots equal, the port's zeros past the total."""
+    words, counts, e_cap = crafted_expand_case(case, seed=30)
+    total = min(int(counts.sum()), e_cap)
+    jw, jids = jexpand(jnp.asarray(words), jnp.asarray(counts), e_cap)
+    tw, tids = expand_fields(torch.tensor(words), torch.tensor(counts),
+                             e_cap)
+    assert tw.shape == (NWORDS, e_cap) and tids.shape == (e_cap,)
+    np.testing.assert_array_equal(np_(tids)[:total],
+                                  np.asarray(jids)[:total])
+    np.testing.assert_array_equal(np_(tw)[:, :total],
+                                  np.asarray(jw)[:, :total])
     assert not np_(tids)[total:].any() and not np_(tw)[:, total:].any()
 
 

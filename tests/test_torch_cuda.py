@@ -64,6 +64,85 @@ def test_expand_kernel_matches_plain(cuda, n, e_cap, seed):
         assert torch.equal(g.cpu(), w)
 
 
+# crafted expansion inputs (shared with tests/test_torch_binning.py, which
+# holds them against JAX).  The kernel gives each CTA a span of 1,024 slots
+# and stages the span's owner window of the cumsum when it holds at most
+# 4,096 Gaussians; "zero_run" exceeds that window (its global-search
+# route), "long_owner" spans several CTA spans with one owner.
+EXPAND_CASES = ("zero_run", "long_owner", "total_is_cap", "all_zero",
+                "single", "trailing_zeros", "odd_cap")
+
+
+def crafted_expand_case(case: str, seed: int):
+    """Numpy inputs of expand_fields: (words (5, N) int32, counts (N,)
+    int32, e_cap)."""
+    rng = np.random.default_rng(seed)
+
+    def some(n, lo=0, hi=9):
+        return rng.integers(lo, hi, n)
+    if case == "zero_run":  # 5,000 zero-count Gaussians between owners
+        counts = np.concatenate([some(400, 1), np.zeros(5000, np.int64),
+                                 some(400, 1)])
+        e_cap = int(counts.sum()) + 700
+    elif case == "long_owner":  # one Gaussian of 5,000 entries
+        counts = np.concatenate([some(60), [5000], some(60)])
+        e_cap = int(counts.sum()) + 300
+    elif case == "total_is_cap":
+        counts = some(1500)
+        e_cap = int(counts.sum())
+    elif case == "all_zero":
+        counts = np.zeros(300, np.int64)
+        e_cap = 1024
+    elif case == "single":  # N = 1
+        counts = np.array([7])
+        e_cap = 13
+    elif case == "trailing_zeros":
+        counts = np.concatenate([some(700), np.zeros(3000, np.int64)])
+        e_cap = int(counts.sum()) + 2100
+    elif case == "odd_cap":  # rows of the output not 16-byte aligned
+        counts = some(1200)
+        e_cap = int(counts.sum()) + 1023
+        assert e_cap % 4 != 0
+    else:
+        raise ValueError(case)
+    counts = counts.astype(np.int32)
+    words = rng.integers(-2**31, 2**31 - 1, (NWORDS, counts.shape[0]),
+                         dtype=np.int64).astype(np.int32)
+    return words, counts, e_cap
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_expand_kernel_crafted_cases(cuda, case):
+    """Every slot of the kernel equal to the plain version on the crafted
+    cases, bit-identical on repeat."""
+    words, counts, e_cap = (torch.tensor(x) if isinstance(x, np.ndarray)
+                            else x for x in crafted_expand_case(case, 31))
+    launches = expand_fields.kernel_launches
+    k1 = expand_fields(words.to(cuda), counts.to(cuda), e_cap)
+    k2 = expand_fields(words.to(cuda), counts.to(cuda), e_cap)
+    torch.cuda.synchronize()
+    assert expand_fields.kernel_launches == launches + 2
+    want = expand_fields_plain(words, counts, e_cap)
+    for a, b, w in zip(k1, k2, want):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), w)
+
+
+def test_expand_runs_without_host_sync(cuda):
+    """expand_fields on CUDA tensors waits for the device nowhere: in sync
+    debug mode "error" any synchronizing call raises."""
+    words, counts, e_cap = crafted_expand_case("zero_run", seed=32)
+    w, c = torch.tensor(words).to(cuda), torch.tensor(counts).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = expand_fields(w, c, e_cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, p in zip(got, expand_fields_plain(w, c, e_cap)):
+        assert torch.equal(g, p)
+
+
 @pytest.mark.parametrize("n,w,h,shift,case", [
     (300, 96, 80, 0.0, "plain"), (20_000, 640, 480, 0.0, "plain"),
     # ranges of several chunks whose counts are multiples of neither 4
@@ -172,6 +251,65 @@ def test_tile_loss_kernel_matches_plain(cuda, w, h, bg):
                                           s)
     assert float((dk - dp).abs().max()) <= 1e-5
     torch.testing.assert_close(sk.sum(0), sp.sum(0), rtol=1e-5, atol=0)
+
+
+def _loss_tiles(cuda, w, h, tile_w, tile_h, seed):
+    """Random planar forward tiles and a target for a w x h frame in
+    tile_w x tile_h tiles, on the card."""
+    import dataclasses
+    s = dataclasses.replace(RenderSettings(), tile_w=tile_w, tile_h=tile_h,
+                            background=(0.2, 0.5, 0.9))
+    ntx, nty = -(-w // tile_w), -(-h // tile_h)
+    rng = np.random.default_rng(seed)
+    out = np.zeros((ntx * nty, tras.NUM_OUT, s.tile_px), np.float32)
+    out[:, 0:3] = rng.random((ntx * nty, 3, s.tile_px)) * 0.9
+    out[:, tras.OUT_T] = rng.random((ntx * nty, s.tile_px))
+    target = rng.random((h, w, 3)).astype(np.float32)
+    target[: h // 3] = 0.0  # flat areas
+    return (torch.tensor(out).to(cuda), torch.tensor(target).to(cuda), ntx,
+            nty, s)
+
+
+@pytest.mark.parametrize("tile_w,tile_h", [(16, 16), (32, 32), (15, 16),
+                                           (256, 1), (1024, 1)])
+def test_tile_loss_kernel_other_tiles(cuda, tile_w, tile_h):
+    """Tiles other than the default 32x16 -- 256 and 1,024 pixels, 240
+    (not a multiple of 32), a 256x1 row, whose halo rows lie two tiles up
+    and down, and a 1024x1 row, whose halo needs more than 48 KB of shared
+    memory -- against the plain version, bit-identical on repeat."""
+    from webdgs_tpu_torch.ops import tile_loss as ttl
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    w, h = 333, 250
+    out, target, ntx, nty, s = _loss_tiles(cuda, w, h, tile_w, tile_h, 14)
+    cfg = LossConfig()
+    launches = ttl.tile_loss_tiles.kernel_launches
+    dk, sk = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
+    dk2, sk2 = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
+    torch.cuda.synchronize()
+    assert ttl.tile_loss_tiles.kernel_launches == launches + 2
+    assert torch.equal(dk, dk2) and torch.equal(sk, sk2)
+    dp, sp = ttl.tile_loss_gradient_plain(out, target, w, h, ntx, nty, cfg,
+                                          s)
+    assert float((dk - dp).abs().max()) <= 1e-5
+    torch.testing.assert_close(sk.sum(0), sp.sum(0), rtol=1e-5, atol=0)
+
+
+def test_tile_loss_runs_without_host_sync(cuda):
+    """tile_loss_tiles on CUDA tensors waits for the device nowhere: in
+    sync debug mode "error" any synchronizing call raises."""
+    from webdgs_tpu_torch.ops import tile_loss as ttl
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    w, h = 200, 120
+    out, target, ntx, nty, s = _loss_tiles(cuda, w, h, 32, 16, 15)
+    cfg = LossConfig()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dk, sk = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    dp, _ = ttl.tile_loss_gradient_plain(out, target, w, h, ntx, nty, cfg, s)
+    assert float((dk - dp).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("n,w,h,shift,case", [

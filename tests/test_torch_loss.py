@@ -70,8 +70,7 @@ def test_loss_sign_of_zero_is_zero():
     assert torch.count_nonzero(g) == 0
 
 
-def _tiles(img_w, img_h, seed):
-    s = SETTINGS_T
+def _tiles(img_w, img_h, seed, s=SETTINGS_T):
     ntx, nty = -(-img_w // s.tile_w), -(-img_h // s.tile_h)
     rng = np.random.default_rng(seed)
     n_tiles = ntx * nty
@@ -94,14 +93,44 @@ def _oracle(out, target, img_w, img_h, ntx, nty, cfg, settings):
     return dpix, tloss.loss_metrics(image.detach(), target, cfg)
 
 
+# (5, 5): the smallest frame the kernel takes; (32, 16): exactly one tile
 @pytest.mark.parametrize("img_w,img_h", [(64, 64), (70, 52), (48, 48),
-                                         (33, 20), (49, 33)])
+                                         (33, 20), (49, 33), (5, 5),
+                                         (32, 16)])
 @pytest.mark.parametrize("bg", [(0.0, 0.0, 0.0), (0.2, 0.5, 0.9)])
 def test_tile_loss_matches_jax_and_oracle(img_w, img_h, bg):
-    out, target, ntx, nty = _tiles(img_w, img_h, seed=7)
+    _check_tile_loss(img_w, img_h, bg, SETTINGS_T.tile_w, SETTINGS_T.tile_h)
+
+
+# tiles other than the default 32x16: 256 and 1,024 pixels, and 240 (not a
+# multiple of 32).  The JAX function takes each of them, so the port is
+# held against it and against the oracle.
+@pytest.mark.parametrize("tile_w,tile_h,img_w,img_h", [
+    (16, 16, 40, 37), (16, 16, 16, 16), (32, 32, 70, 52), (32, 32, 33, 40),
+    (15, 16, 23, 11)])
+def test_tile_loss_other_tiles_match_jax_and_oracle(tile_w, tile_h, img_w,
+                                                    img_h):
+    _check_tile_loss(img_w, img_h, (0.2, 0.5, 0.9), tile_w, tile_h)
+
+
+def test_tile_loss_refuses_tiles_the_kernel_cannot_take():
+    """A tile of more than 1,024 pixels, which the kernel refuses, is
+    refused on the CPU too."""
+    s = dataclasses.replace(SETTINGS_T, tile_w=64, tile_h=32)
+    out, target, ntx, nty = _tiles(100, 40, seed=1, s=s)
+    with pytest.raises(ValueError, match="1 to 1024 pixels"):
+        ttl.tile_loss_gradient(t_(out), t_(target), 100, 40, ntx, nty,
+                               tloss.LossConfig(), s)
+
+
+def _check_tile_loss(img_w, img_h, bg, tile_w, tile_h):
+    """dpix and the metrics of the port's tile loss (plain version on the
+    CPU) against the JAX function and the image-space oracle."""
+    st = dataclasses.replace(SETTINGS_T, background=bg, tile_w=tile_w,
+                             tile_h=tile_h)
+    sj = jax_settings(background=bg, tile_w=tile_w, tile_h=tile_h)
+    out, target, ntx, nty = _tiles(img_w, img_h, seed=7, s=st)
     cfg_t, cfg_j = tloss.LossConfig(), jloss.LossConfig()
-    st = dataclasses.replace(SETTINGS_T, background=bg)
-    sj = jax_settings(background=bg)
     assert ttl.supports_tile_loss(img_w, img_h, st)
 
     launches = ttl.tile_loss_tiles.kernel_launches

@@ -38,6 +38,9 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # words, cum_incl, n, e_cap, out_words, out_ids, stream
     "webdgs_expand_fields": (_P, _P, _I, _I, _P, _P, _P),
+    # out (6 ints: threads, shared bytes, CTAs per SM, registers, slots per
+    # CTA, staged cumsum window)
+    "webdgs_expand_occupancy": (_P,),
     # attrs16, e_len, tile_offsets, n_tiles, ntx, tile_w, tile_h, chunk,
     # alpha_min, alpha_max, t_threshold, log_t_min, track_ncontrib, out,
     # tile_order ((T,) int32 scratch for the launch order), stream
@@ -58,6 +61,9 @@ SIGNATURES = {
     # ldssim, c1, c2, bg0, bg1, bg2, dpix, sums, stream
     "webdgs_tile_loss": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                          _F, _F, _F, _F, _P, _P, _P),
+    # tile_w, tile_h, out (5 ints: threads, dynamic shared bytes, CTAs per
+    # SM, registers, output rows per thread)
+    "webdgs_tile_loss_occupancy": (_I, _I, _P),
     # rows, n_rows, row_stride, entry_source, valid, e_len, counts, n,
     # work, work_bytes, out, device, stream
     "webdgs_segsum": (_P, _I, _L, _P, _P, _I, _P, _I, _P, _L, _P, _I, _P),

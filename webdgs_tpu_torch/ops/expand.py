@@ -1,12 +1,14 @@
 """Ragged per-Gaussian expansion: counts -> per-entry ids + binning words
 (counterpart of webdgs_tpu/ops/expand.py:144-208).
 
-``expand_fields`` is the wrapper of CUDA kernel ``csrc/expand.cu`` (one
-thread per entry slot, binary search of the count cumsum).  On a CPU tensor
-it runs :func:`expand_fields_plain`, the same function as a
-``repeat_interleave`` plus a gather; on a CUDA tensor it launches the
-kernel or raises.  Unlike the TPU kernel, whose slots past the real total
-are unwritten, both versions define them: id 0 and words 0.
+``expand_fields`` is the wrapper of CUDA kernel ``csrc/expand.cu`` (a CTA
+per span of 1,024 slots: the span's owner window of the count cumsum,
+found by a warp-wide search, staged in shared memory; 16-byte stores).
+The cumsum is ``torch.cumsum``, launched here.  On a CPU tensor it runs
+:func:`expand_fields_plain`, the same function as a ``repeat_interleave``
+plus a gather; on a CUDA tensor it launches the kernel or raises.  Unlike
+the TPU kernel, whose slots past the real total are unwritten, both
+versions define them: id 0 and words 0.
 """
 
 from __future__ import annotations

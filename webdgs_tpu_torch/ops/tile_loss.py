@@ -2,13 +2,15 @@
 buffer (counterpart of webdgs_tpu/ops/tile_loss.py:61-357).
 
 ``tile_loss_gradient`` is the wrapper of CUDA kernel ``csrc/tile_loss.cu``
-(one CTA per tile, one thread per pixel, the composited prediction and the
-target staged over the tile plus a 2-pixel halo in shared memory).  It
-turns the planar (T, NUM_OUT, P) forward tiles and the (H, W, 3) target
-into the backward rasterizer's pixel cotangent (T, NUM_OUT, P) -- channels
-0-2 dL/drgb, channel OUT_T = sum_c bg_c * dL/dc (the background chain
-rule), the rest 0 -- and per-tile metric partial sums
-``[sum |d|, sum d^2, sum dssim, valid px]`` (T, 4).  On a CPU tensor it runs
+(one CTA per tile, the composited prediction and the target staged over
+the tile plus a 2-pixel halo in shared memory, the 5x5 window sums
+separable: row sums, then sums of five row sums, four pixels of a column
+per thread).  It turns the planar (T, NUM_OUT, P) forward tiles and the
+(H, W, 3) target into the backward rasterizer's pixel cotangent
+(T, NUM_OUT, P) -- channels 0-2 dL/drgb, channel OUT_T = sum_c bg_c *
+dL/dc (the background chain rule), the rest 0 -- and per-tile metric
+partial sums ``[sum |d|, sum d^2, sum dssim, valid px]`` (T, 4).  Any tile
+of at most 1,024 pixels.  On a CPU tensor it runs
 :func:`tile_loss_gradient_plain`, the same arithmetic in plain torch over
 the whole padded frame; on a CUDA tensor it launches the kernel or raises.
 
@@ -29,6 +31,7 @@ from webdgs_tpu_torch.ops.rasterize import NUM_OUT, OUT_T
 HALF = 2  # 5x5 window
 WIN = 2 * HALF + 1
 NUM_SUMS = 4  # per-tile partials: |d|, d^2, dssim, valid pixels
+MAX_TILE_PX = 1024  # the largest tile the kernel takes (any tile_w, tile_h)
 
 
 def supports_tile_loss(img_w: int, img_h: int,
@@ -70,9 +73,9 @@ def _check_inputs(out, target, img_w, img_h, ntx, nty, settings):
     if not supports_tile_loss(img_w, img_h, settings):
         raise ValueError(f"a {img_w}x{img_h} frame is smaller than the "
                          f"{WIN}x{WIN} window")
-    if not 0 < settings.tile_px <= 1024:
-        raise ValueError(f"tile of {settings.tile_px} pixels: one CUDA "
-                         "block holds 1 to 1024")
+    if not 0 < settings.tile_px <= MAX_TILE_PX:
+        raise ValueError(f"tile of {settings.tile_px} pixels: the kernel "
+                         f"takes tiles of 1 to {MAX_TILE_PX} pixels")
 
 
 def _box(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
