@@ -77,6 +77,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
      sh_deg 3, 1920x1080, and the forward, backward, tile-loss and expand
      kernels against their plain versions at that frame's and step's
      inputs;
+  6b. banded: the 1M sh3 scene at DCI 8K (8192x4320, 69,120 tiles, over
+     the 16-bit tile-key limit: 2 bands) through Viewer.render and through
+     render_banded in both modes, run in sync debug mode "error" (every
+     counter reset just before; expand and the forward raster launched
+     once per band and frame), with frame times, entries per band and peak
+     memory; the heaviest band's expand and forward kernels against their
+     plain versions; and render_banded with 2 and 3 bands against render
+     at 1920x1080, within RAST_ATOL outside threshold ties;
+  6c. dp: make_mesh() with no launcher (a 1-rank NCCL group), 3
+     dp_train_steps of 2 views at 1M sh3 / 1920x1080 through all five
+     training kernels (counters reset just before), one step's
+     synchronizing calls by line (none from parallel/sharding.py), one
+     step against the single-device composition at rtol 2e-4 / atol 2e-6,
+     and render_tile_sharded against render;
   7. server: a view-mode ViewerServer on 127.0.0.1 answers 3 JPEG frames,
      a control post and /stats over HTTP;
   8. the entry point: ``python -m webdgs_tpu_torch train --no-densify`` on
@@ -95,6 +109,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
      and a small event on the card matches the same event on the CPU;
  10. ``train`` with densification and ``export`` on the synthetic dataset:
      exit 0, logged point counts that change, a PLY that loads;
+ 10b. ``python -m torch.distributed.run --nproc_per_node=1 -m
+     webdgs_tpu_torch train --shard dp`` with densification on the same
+     dataset: exit 0, a checkpoint, finite losses, and every kernel
+     launched in that process (its report's counts, from 0);
  11. a live-training server over HTTP: /stats shows the iteration advancing,
      /loss.jpg returns a JPEG, and an upload of the dataset sets it.
 It prints one JSON line of per-kernel results, the card line again, and as
@@ -1895,6 +1913,342 @@ def live_server_phase(dev, data: str, sparse: str,
           f"uploads staged {staged}; /upload_done {done}", flush=True)
 
 
+def banded_check(label: str, scene, cam, w: int, h: int, settings,
+                 bands: int) -> dict:
+    """``render_banded(bands=...)`` against ``render`` at one frame: the
+    image within RAST_ATOL except at threshold ties (TIE_RTOL, as
+    forward_check has them), the bands' last contributors and final
+    transmittance coming from their tiles (``renderer._render_band``, the
+    route render_banded takes; its image is checked to be theirs bit for
+    bit)."""
+    import torch
+    from webdgs_tpu_torch.ops import binning, rasterize
+    from webdgs_tpu_torch.render import renderer
+    ntx, nty = binning.tile_grid(w, h, settings)
+    rows = -(-nty // bands)
+    with torch.no_grad():
+        ref = renderer.render(scene, cam, w, h, settings)
+        got = renderer.render_banded(scene, cam, w, h, settings,
+                                     bands=bands)
+        attrs, aux = renderer._project_frame(scene, cam, w, h, settings,
+                                             None, 3.0, False)
+        tiles = torch.cat([renderer._render_band(
+            attrs, aux, b * rows, w, rows, ntx, settings, None)[0]
+            for b in range(bands)])[:h]
+    check(torch.equal(rasterize.composite_background(tiles, settings), got),
+          f"render_banded ({label}) is not its bands' tiles")
+    diff = (got - ref.image).abs().amax(dim=-1)
+    nc = tiles[..., rasterize.OUT_NCONTRIB]
+    flip = nc != ref.n_contrib.to(torch.float32)
+    t_first = torch.where(nc < ref.n_contrib, tiles[..., rasterize.OUT_T],
+                          ref.t_final)
+    tie = flip & ((t_first - settings.t_threshold).abs()
+                  <= TIE_RTOL * settings.t_threshold)
+    over = diff > RAST_ATOL
+    err = float(diff.max())
+    err_rest = float(diff[~(over & tie)].max())
+    n_over, n_ties = int(over.sum()), int((over & tie).sum())
+    same = bool(torch.equal(got, ref.image))
+    print(f"[banded] render_banded(bands={bands}) vs render, {label}: "
+          f"{bands} bands of {rows} tile rows; max abs err {err:.3e}, "
+          f"{n_over} pixels over {RAST_ATOL} ({n_ties} threshold ties), "
+          f"{err_rest:.3e} outside them; bit-identical {same}", flush=True)
+    check(err_rest <= RAST_ATOL, f"render_banded ({label}) max abs err "
+          f"{err} ({n_over} pixels over {RAST_ATOL}, {n_ties} ties)")
+    return {"bands": bands, "max_abs_err": err,
+            "max_abs_err_outside_ties": err_rest, "tie_pixels": n_ties,
+            "bit_identical": same}
+
+
+def banded_phase(dev, big, settings, size=(8192, 4320),
+                 hd=(1920, 1080)) -> dict:
+    """[banded]: the 1M sh3 scene at DCI 8K (over the tile-key limit, two
+    bands) through ``Viewer.render`` and through ``render_banded`` in both
+    modes (run in sync debug mode "error": a banded frame waits on
+    nothing), each band launching expand and the forward raster once; one
+    band's expand and forward kernels against their plain versions; and
+    ``render_banded`` with 2 and 3 bands against ``render`` at
+    1920x1080."""
+    import torch
+    from webdgs_tpu_torch.core.camera import default_camera
+    from webdgs_tpu_torch.ops import binning, rasterize
+    from webdgs_tpu_torch.ops.projection import restrict_aux_to_band
+    from webdgs_tpu_torch.render import renderer
+    from webdgs_tpu_torch.render.viewer import Viewer
+
+    cam_hd = default_camera(*hd, position=(0.0, 0.0, -10.0), device=dev)
+    vs_plain = [banded_check(f"1M sh3 {hd[0]}x{hd[1]}", big, cam_hd, *hd,
+                             settings, b) for b in (2, 3)]
+    W, H = size
+    ntx, nty = binning.tile_grid(W, H, settings)
+    check(ntx * nty >= binning.TILE_KEY_LIMIT, f"{W}x{H} is under the limit")
+    bands = -(-nty // ((binning.TILE_KEY_LIMIT - 1) // ntx))
+    rows = -(-nty // bands)
+    viewer = Viewer(big, W, H, settings, device="cuda")
+    viewer.control.position = np.array([0.0, 0.0, -10.0], np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counters()
+    frame_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img = viewer.render()  # a host image: synchronized
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+    viewer_launches = {k: v for k, v in kernel_counters().items()
+                       if k in VIEWER_KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(v == 3 * bands for v in viewer_launches.values()),
+          f"3 banded frames of {bands} bands launched {viewer_launches}")
+    check(img.shape == (H, W, 3) and bool(np.isfinite(img).all()),
+          f"the {W}x{H} frame is not a finite image")
+    lit = float((img.max(axis=2) > 0.02).mean())
+    check(lit > 0.05, f"the {W}x{H} frame is almost all background ({lit})")
+    print(f"[banded] Viewer 1M sh3 {W}x{H} ({ntx * nty} tiles, {bands} "
+          f"bands of {rows} tile rows): frames "
+          f"{[round(t, 2) for t in frame_ms]} ms; {viewer.entry_demand} "
+          f"entries in the largest band, capacity {viewer._entry_cap}; "
+          f"peak device memory {peak_gib:.2f} GiB; {lit:.3f} of pixels "
+          f"lit; launches {viewer_launches}", flush=True)
+
+    cam = viewer.camera()
+    cap = viewer._entry_cap
+
+    def frame(mode):
+        return renderer.render_banded(big, cam, W, H, settings,
+                                      entry_capacity=cap, mode=mode,
+                                      return_entries=True)
+    for mode in ("gaussian", "pointcloud"):
+        frame(mode)  # warm-up
+    reset_kernel_counters()
+    banded_ms = {"gaussian": [], "pointcloud": []}
+    outs = {}
+    with torch.no_grad():
+        for _ in range(3):
+            for mode in banded_ms:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    outs[mode] = frame(mode)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                banded_ms[mode].append(1e3 * (time.perf_counter() - t0))
+    launches = {k: v for k, v in kernel_counters().items()
+                if k in VIEWER_KERNELS}
+    check(all(v == 6 * bands for v in launches.values()),
+          f"6 render_banded frames of {bands} bands launched {launches}")
+    g_img, g_ent = outs["gaussian"]
+    p_img, _ = outs["pointcloud"]
+    check(tuple(g_img.shape) == tuple(p_img.shape) == (H, W, 3) and
+          bool(torch.isfinite(g_img).all()) and
+          float(p_img[..., 0].max()) > 0.5, "render_banded frames")
+    check(int(g_ent) == viewer.entry_demand,
+          "render_banded's entries differ from the Viewer's")
+    print(f"[banded] render_banded 1M sh3 {W}x{H} in sync debug mode "
+          f"\"error\" (no synchronizing call): gaussian "
+          f"{[round(t, 2) for t in banded_ms['gaussian']]} ms, pointcloud "
+          f"{[round(t, 2) for t in banded_ms['pointcloud']]} ms; launches "
+          f"{launches}", flush=True)
+
+    # each band's entries; the heaviest band's kernels against their plain
+    # versions
+    with torch.no_grad():
+        attrs, aux = renderer._project_frame(big, cam, W, H, settings, None,
+                                             3.0, False)
+        per_band = [int(renderer._render_band(attrs, aux, b * rows, W, rows,
+                                              ntx, settings, cap)[1])
+                    for b in range(bands)]
+        b = int(np.argmax(per_band))
+        aux_b = restrict_aux_to_band(aux, b * rows, rows)
+        attrs_b = renderer.shift_to_band(attrs, b * rows, settings)
+        words, counts, _, _ = binning.expansion_inputs(aux_b, ntx, cap,
+                                                       attrs_b, settings)
+        bins = binning.bin_splats(aux_b, W, rows * settings.tile_h, settings,
+                                  capacity=cap, attrs=attrs_b)
+        a16 = rasterize.pack_entry_attrs(attrs_b, bins.entry_gauss,
+                                         bins.entry_valid)
+    del attrs, aux, aux_b, attrs_b
+    print(f"[banded] entries per band {per_band} (capacity {cap}); band "
+          f"{b} against the plain versions", flush=True)
+    exp = expand_check(f"{W}x{H} band {b}", words, counts, cap, 1)
+    fwd = forward_check(f"{W}x{H} band {b}", a16, bins.tile_offsets, ntx,
+                        rows, settings, 5, 1, ties=True)
+    del words, counts, bins, a16, viewer, outs, g_img, p_img, img
+    torch.cuda.empty_cache()
+    return {"launches": launches, "viewer_launches": viewer_launches,
+            "frame_ms": frame_ms, "banded_ms": banded_ms,
+            "entries_per_band": per_band, "peak_gib": peak_gib,
+            "expand": exp, "forward": fwd, "vs_plain": vs_plain}
+
+
+def dp_phase(dev, big, settings, size=(1920, 1080)) -> dict:
+    """[dp]: ``make_mesh()`` with no launcher (a 1-rank NCCL group on the
+    card); 3 ``dp_train_step``s of 2 views on the 1M sh3 scene through all
+    five training kernels, one step's synchronizing calls by line (none
+    from parallel/sharding.py), one step against the single-device
+    composition (the views' ``compute_param_grads_tiled`` summed, divided
+    by 2, ``adam_step``) at tests/test_sharding.py's rtol 2e-4 / atol
+    2e-6; and ``render_tile_sharded`` against ``render``."""
+    import torch
+    import torch.distributed as dist
+    from webdgs_tpu_torch.config import quantize_budget
+    from webdgs_tpu_torch.core.camera import default_camera
+    from webdgs_tpu_torch.ops.adam import (AdamHyperparameters, adam_step,
+                                           init_adam_state)
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    from webdgs_tpu_torch.parallel.sharding import (dp_train_step, make_mesh,
+                                                    render_tile_sharded)
+    from webdgs_tpu_torch.render.renderer import render
+    from webdgs_tpu_torch.train.step import compute_param_grads_tiled
+
+    W, H = size
+    mesh = make_mesh()
+    try:
+        check(mesh.size == 1 and mesh.device.type == "cuda" and
+              dist.get_backend() == "nccl",
+              f"make_mesh(): {mesh}, backend {dist.get_backend()}")
+        cams = [default_camera(W, H, position=(0.1 * i, 0.0, -10.0),
+                               device=dev) for i in range(2)]
+        rng = np.random.default_rng(6)
+        with torch.no_grad():
+            pert = big.with_params({
+                **big.params(),
+                "means": big.means + torch.tensor(
+                    rng.normal(0, 0.01, (big.capacity, 3)),
+                    dtype=torch.float32, device=dev)})
+            targets = torch.stack([render(pert, c, W, H, settings).image
+                                   for c in cams])
+            demand = max(int(render(big, c, W, H, settings)
+                             .binning.expansion_entries) for c in cams)
+        del pert
+        cap = quantize_budget(demand * 1.2, settings.chunk,
+                              settings.chunk * 8)
+        kw = dict(img_w=W, img_h=H, settings=settings, entry_capacity=cap)
+        opt0 = init_adam_state(big.params())
+        s_cur, o_cur, _ = dp_train_step(big, opt0, cams, targets, mesh,
+                                        **kw)  # warm-up
+        reset_kernel_counters()
+        step_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_cur, o_cur, m_cur = dp_train_step(s_cur, o_cur, cams, targets,
+                                                mesh, **kw)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: v for k, v in kernel_counters().items()
+                    if k in TRAIN_KERNELS}
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel of the dp step did not launch: {launches}")
+        check(math.isfinite(float(m_cur["loss"])) and
+              bool(torch.isfinite(s_cur.means).all()), "dp training")
+        _, syncs = sync_tally(lambda: dp_train_step(s_cur, o_cur, cams,
+                                                    targets, mesh, **kw))
+        torch.cuda.synchronize()
+        mine = {k: v for k, v in syncs.items() if "parallel/sharding" in k}
+        check(not mine, f"parallel/sharding.py synchronized: {mine}")
+        print(f"[dp] 1-rank NCCL mesh ({mesh.device}), 1M sh3 {W}x{H}, 2 "
+              f"views per step, 3 steps after a warm-up: "
+              f"{[round(t, 2) for t in step_ms]} ms/step; loss "
+              f"{float(m_cur['loss']):.5f}, {int(m_cur['tile_entries'])} "
+              f"entries (max of the views), capacity {cap}; one step waits "
+              f"on the device {sum(syncs.values())} times {syncs}, none "
+              f"from parallel/sharding.py; launches {launches}", flush=True)
+
+        # one step against the single-device composition
+        new, _, _ = dp_train_step(big, opt0, cams, targets, mesh, **kw)
+        params = big.params()
+        grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        counts = torch.zeros((big.capacity,), dtype=torch.int32, device=dev)
+        for c, t in zip(cams, targets):
+            _, g, aux, _ = compute_param_grads_tiled(
+                big, c, t, W, H, LossConfig(), settings, parity_sh=True,
+                entry_capacity=cap)
+            grads = {k: grads[k] + g[k] for k in grads}
+            counts = counts + aux.num_tiles
+        with torch.no_grad():
+            ref, _ = adam_step(params, {k: v / 2 for k, v in grads.items()},
+                               opt0, AdamHyperparameters(), counts)
+        over = {k: float(((new.params()[k] - ref[k]).abs()
+                          - (2e-6 + 2e-4 * ref[k].abs())).max())
+                for k in ref}
+        err = {k: float((new.params()[k] - ref[k]).abs().max()) for k in ref}
+        same = all(torch.equal(new.params()[k], ref[k]) for k in ref)
+        print(f"[dp] one dp step vs the single-device composition: max abs "
+              f"err {err}; bit-identical {same}", flush=True)
+        check(all(v <= 0 for v in over.values()),
+              f"dp step differs from the composition beyond rtol 2e-4 / "
+              f"atol 2e-6: {err}")
+        del new, ref, grads, s_cur, o_cur
+
+        with torch.no_grad():
+            sharded = render_tile_sharded(big, cams[0], W, H, mesh, settings)
+            plain = render(big, cams[0], W, H, settings).image
+        ts_err = float((sharded - plain).abs().max())
+        check(sharded.shape == plain.shape and ts_err <= RAST_ATOL,
+              f"render_tile_sharded max abs err {ts_err}")
+        print(f"[dp] render_tile_sharded 1M sh3 {W}x{H} on 1 rank vs render:"
+              f" max abs err {ts_err:.3e}", flush=True)
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "syncs": syncs,
+            "max_abs_err": max(err.values()), "bit_identical": same,
+            "tile_sharded_err": ts_err}
+
+
+def cli_dp_phase(tmp: str, data: str, sparse: str,
+                 device: str = "cuda") -> dict:
+    """[cli]: ``python -m torch.distributed.run --nproc_per_node=1 -m
+    webdgs_tpu_torch train --shard dp`` with densification (events at 10,
+    20, 30): exit 0, a checkpoint, finite losses, changing point counts,
+    and the run's kernel launches (its report) from 0 up for all six
+    kernels."""
+    import socket
+    from webdgs_tpu_torch.io.checkpoint import load_checkpoint
+    ck = os.path.join(tmp, "ck_dp.npz")
+    report = os.path.join(tmp, "report_dp.json")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+         "--master_port", str(port), "-m", "webdgs_tpu_torch", "train",
+         "--shard", "dp", "--points", os.path.join(sparse, "points3D.bin"),
+         "--cameras", os.path.join(sparse, "images.bin"),
+         os.path.join(sparse, "cameras.bin"), "--images",
+         os.path.join(data, "images"), "--iterations", "30",
+         "--log-every", "1", "--densify-warmup", "10",
+         "--densify-interval", "10", "--densify-stop", "30",
+         "--metric-threshold", "0.3", "--clone-threshold", "1",
+         "--prune-opacity", "0.72", "--device", device, "--out", ck,
+         "--report", report], capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"train --shard dp exited {proc.returncode}: {proc.stderr[-3000:]}")
+    check("sharding 'dp' over 1 device(s)" in proc.stdout,
+          "train --shard dp did not report its mesh")
+    points = [int(x) for x in re.findall(r"points=(\d+)", proc.stdout)]
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", proc.stdout)]
+    check(len(losses) == 30 and all(map(math.isfinite, losses)) and
+          len(set(points)) > 1, f"train --shard dp logged points "
+          f"{sorted(set(points))}, losses {losses[:3]}...")
+    _, _, meta = load_checkpoint(ck, "cpu")
+    check(meta["iteration"] == 30, f"checkpoint at {meta['iteration']}")
+    with open(report) as f:
+        launches = json.load(f)["kernel_launches"]
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of train --shard dp did not launch: {launches}")
+    print(f"[cli] torchrun --nproc_per_node=1 -m webdgs_tpu_torch train "
+          f"--shard dp, 30 iterations with densification on 4 synthetic "
+          f"800x600 views: exit 0 in {cli_s:.1f} s; points {points[0]} -> "
+          f"{points[-1]}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"checkpoint at iteration 30; launches {launches}", flush=True)
+    return {"launches": launches, "seconds": cli_s}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
     import torch
@@ -2330,7 +2684,13 @@ def main(argv: list[str] | None = None) -> int:
           f"{big_steps[-1]:.2f} ms/step); loss {float(m_big['loss']):.5f}; "
           f"{int(m_big['tile_entries'])} entries, capacity {cap1m}; peak "
           f"device memory {peak_gb:.2f} GiB", flush=True)
-    del big, v1m, img1m, s_big, o_big, target1m
+    del v1m, img1m, s_big, o_big, target1m
+    torch.cuda.empty_cache()
+
+    # --- 6b. the serial-band renderer at DCI 8K; 6c. data parallelism ---
+    banded_res = banded_phase(dev, big, s1m)
+    dp_res = dp_phase(dev, big, s1m)
+    del big
     torch.cuda.empty_cache()
 
     densify_res = densify_phase(dev, s1m)
@@ -2407,6 +2767,7 @@ def main(argv: list[str] | None = None) -> int:
               f"{ev['points']} points; checkpoint + PLY written", flush=True)
 
         cli_densify_phase(tmp, data, sparse)
+        cli_dp_res = cli_dp_phase(tmp, data, sparse)
         live_server_phase(dev, data, sparse)
 
     dlaunch = densify_res["launches"]
@@ -2425,16 +2786,25 @@ def main(argv: list[str] | None = None) -> int:
                 "pairs": r["pairs"], "tile_work": r["tile_work"],
                 "before": r.get("before")}
 
+    # the train command's report names the wrappers, this line the kernels
+    cli_dp_launches = {name: cli_dp_res["launches"][fn]
+                       for _, fn, name in KERNEL_COUNTERS}
+
     def entry(name, source, replaces, err, ms, plain_ms, bound, lib_ms,
               **extra):
         # launches: the training path's 20 steps; launches_densify: the
-        # densify run's 4 steps and 2 events
+        # densify run's 4 steps and 2 events; launches_banded: 6
+        # render_banded frames at 8K; launches_dp: 3 dp steps of 2 views;
+        # launches_cli_dp: the train --shard dp command's 30 iterations
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": train_launches.get(name, dlaunch[name]),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": lib_ms, "launches_densify": dlaunch[name],
+                "launches_banded": banded_res["launches"].get(name, 0),
+                "launches_dp": dp_res["launches"].get(name, 0),
+                "launches_cli_dp": cli_dp_launches[name],
                 **extra}
 
     def expand_reading(r):
@@ -2471,7 +2841,8 @@ def main(argv: list[str] | None = None) -> int:
               kernel_device_ms=exp_bench["kernel_device_ms"],
               launch=exp_bench["launch"],
               before=exp_bench.get("before"), frame_1m=expand_reading(exp1m),
-              densify_view=expand_reading(densify_res["expand"])),
+              densify_view=expand_reading(densify_res["expand"]),
+              band_8k=expand_reading(banded_res["expand"])),
         # at the bench frame; the 1M frame and the densify view beside it
         entry("rasterize_tiles", "webdgs_tpu_torch/csrc/rasterize_fwd.cu",
               "webdgs_tpu/ops/rasterize.py:239", fwd["err"], fwd["ms"],
@@ -2484,7 +2855,8 @@ def main(argv: list[str] | None = None) -> int:
               nc_mismatch=fwd["nc_mismatch"], device_ms=fwd["device_ms"],
               launch=fwd["launch"], tile_work=fwd["tile_work"],
               before=fwd.get("before"), frame_1m=reading(fwd1m),
-              densify_view=reading(dfwd)),
+              densify_view=reading(dfwd),
+              band_8k=reading(banded_res["forward"])),
         # at the bench training step; the 1M step beside it
         entry("tile_loss", "webdgs_tpu_torch/csrc/tile_loss.cu",
               "webdgs_tpu/ops/tile_loss.py:106", loss_bench["err"],

@@ -10,11 +10,13 @@ import torch
 from webdgs_tpu.core import camera as jcam
 from webdgs_tpu.io import ply as jply
 from webdgs_tpu.ops import sh as jsh
+from webdgs_tpu.ops import projection as jprojection
 from webdgs_tpu.ops.projection import project_gaussians as jproject
 from webdgs_tpu_torch.core import camera as tcam
 from webdgs_tpu_torch.core.scene import scene_from_arrays, scene_from_numpy
 from webdgs_tpu_torch.io import ply as tply
 from webdgs_tpu_torch.ops import sh as tsh
+from webdgs_tpu_torch.ops import projection as tprojection
 from webdgs_tpu_torch.ops.projection import project_gaussians
 
 from tests.torch_parity import (CPU, both_cameras, both_scenes,
@@ -147,6 +149,31 @@ def test_projection_matches_jax(sh_deg, pos, scaling):
     np.testing.assert_array_equal(np_(tx.radius_capped),
                                   np.asarray(jx.radius_capped))
     assert tx.num_tiles.dtype == torch.int32
+
+
+def test_quat_to_rotmat_matches_jax():
+    """Unnormalised quaternions: no normalisation on either side."""
+    q = np.random.default_rng(8).normal(0, 1, (64, 4)).astype(np.float32)
+    want = np.asarray(jprojection.quat_to_rotmat(q))
+    got = tprojection.quat_to_rotmat(torch.tensor(q))
+    assert got.shape == (64, 3, 3)
+    np.testing.assert_allclose(np_(got), want, **TOL)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    r = np_(tprojection.quat_to_rotmat(torch.tensor(qn)))
+    np.testing.assert_allclose(r @ r.transpose(0, 2, 1),
+                               np.broadcast_to(np.eye(3), r.shape),
+                               atol=1e-5)
+
+
+def test_covariance3d_matches_jax():
+    rng = np.random.default_rng(9)
+    q = rng.normal(0, 1, (64, 4)).astype(np.float32)
+    scales = np.exp(rng.uniform(-3, 0, (64, 3))).astype(np.float32)
+    want = np.asarray(jprojection.covariance3d(q, scales))
+    got = np_(tprojection.covariance3d(torch.tensor(q), torch.tensor(scales)))
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, got.transpose(0, 2, 1), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_projection_detaches_like_jax():

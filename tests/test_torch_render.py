@@ -2,6 +2,8 @@
 bin -> pack -> rasterize -> image) at sh_deg 0 and 3, with the tile cull on
 and off, at the tolerances of tests/test_render_forward.py."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -94,11 +96,40 @@ def test_render_points_matches_jax():
                                atol=IMG_ATOL)
 
 
-def test_frames_past_the_tile_key_limit_raise():
+def test_frames_past_the_tile_key_limit_raise(monkeypatch):
+    """An 8192x4352 frame (69,632 tiles at 32x16) renders in two bands of
+    136 tile rows, each under the 16-bit tile-key limit, assembled to the
+    full height; a single band still raises ``check_tile_key_limit``'s
+    ValueError, and 7680x4320 (64,800 tiles) stays one plain render.  The
+    bands are stubbed one pixel wide (background 0: each band's value
+    passes the composite): the plan is checked, not the pixels."""
+    from webdgs_tpu_torch.ops import binning as tbin
+    from webdgs_tpu_torch.ops.projection import restrict_aux_to_band
+    w, h = 8192, 4352
+    _, ts = both_scenes(numpy_scene(40, seed=2))
+    _, tc = both_cameras(w, h)
     s = torch_settings()
-    trenderer.check_frame_supported(7680, 4320, s)  # 8K: 64800 tiles
-    with pytest.raises(NotImplementedError, match="render_banded"):
-        trenderer.check_frame_supported(8192, 4352, s)
-    with pytest.raises(NotImplementedError):
-        trenderer.check_frame_supported(7680, 4320,
-                                        torch_settings(tile_w=16))
+    bands = []
+
+    def band(attrs, aux, row0, img_w, rows, ntx, settings, cap):
+        tbin.check_tile_key_limit(ntx * rows)
+        n = restrict_aux_to_band(aux, row0, rows).num_tiles.sum()
+        bands.append((row0, rows, ntx))
+        return (torch.full((rows * settings.tile_h, 1, 8),
+                           float(len(bands))), n)
+
+    monkeypatch.setattr(trenderer, "_render_band", band)
+    img, ent = trenderer.render_banded(ts, tc, w, h, s, return_entries=True)
+    assert bands == [(0, 136, 256), (136, 136, 256)]
+    assert img.shape == (h, 1, 3)
+    assert float(img[0, 0, 0]) == 1.0 and float(img[-1, 0, 0]) == 2.0
+    assert int(ent) > 0
+    with pytest.raises(ValueError, match="tile-key limit"):
+        trenderer.render_banded(ts, tc, w, h, s, bands=1)
+    plain = []
+    monkeypatch.setattr(trenderer, "render", lambda *a, **k: plain.append(
+        a[2:4]) or SimpleNamespace(image="the plain image"))
+    got = trenderer.render_banded(ts, both_cameras(7680, 4320)[1], 7680,
+                                  4320, s)
+    assert got == "the plain image" and plain == [(7680, 4320)]
+    assert len(bands) == 2

@@ -96,6 +96,34 @@ def test_trainer_matches_jax_trainer():
                                atol=3e-4)
 
 
+def test_trainer_profile_dir_matches_jax(tmp_path):
+    """``train(profile_dir=)``: both packages trace an iteration into the
+    directory (the port with torch.profiler, a Chrome trace that names the
+    step's ops) and train as they do untraced."""
+    import json
+    w, h = 48, 32
+    params = numpy_scene(30, seed=63)
+    js, ts = both_scenes(params)
+    cams_j, cams_t, images = _views(2, w, h, seed=64)
+    tj = JTrainer(js, cams_j, images, _no_densify(JTrainerConfig(seed=3)),
+                  jax_settings())
+    tt = Trainer(ts, cams_t, images,
+                 _no_densify(tconfig.TrainerConfig(seed=3)), torch_settings())
+    # two iterations untraced (JAX compiles at both: the first adapts the
+    # entry capacity), the third traced
+    for tr in (tj, tt):
+        tr.train(2, log_every=0)
+    lj = tj.train(1, log_every=0, profile_dir=str(tmp_path / "jax"))
+    lt = tt.train(1, log_every=0, profile_dir=str(tmp_path / "torch"))
+    np.testing.assert_allclose(lt["loss"], lj["loss"], rtol=1e-3)
+    assert tt.iteration == tj.iteration == 3
+    assert any(files for _, _, files in os.walk(tmp_path / "jax"))
+    (trace,) = os.listdir(tmp_path / "torch")
+    with open(tmp_path / "torch" / trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert any("sort" in str(n) for n in names)
+
+
 def _densify_cfg(cfg, **kw):
     return dataclasses.replace(cfg, densify=dataclasses.replace(
         cfg.densify,
@@ -151,16 +179,40 @@ def test_trainer_with_densify_matches_jax_trainer(monkeypatch):
                                    atol=1e-4, err_msg=k)
 
 
-def test_trainer_refuses_densify_and_mesh():
-    """Only the mesh is refused; densification is on by default."""
+def test_trainer_refuses_densify_and_mesh(tmp_path, monkeypatch):
+    """Nothing is refused now: densification is on by default, and a mesh
+    of one rank (``make_mesh`` on a 1-rank gloo group) takes the
+    single-device step, with the same result as no mesh; only a mesh on
+    another device than the scene's is refused."""
+    from webdgs_tpu_torch.parallel.sharding import make_mesh
+    from webdgs_tpu_torch.train import trainer as ttrainer
     params = numpy_scene(10, seed=1)
     _, ts = both_scenes(params)
     _, cams, images = _views(1, 16, 16, seed=2)
     assert Trainer(ts, cams, images, tconfig.TrainerConfig()) \
         .config.densify.schedule.enabled
     cfg = _no_densify(tconfig.TrainerConfig())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(ts, cams, images, cfg, mesh=object())
+    mesh = make_mesh("cpu", init_method=f"file://{tmp_path / 'store'}",
+                     rank=0, world_size=1, timeout_s=60)
+    try:
+        assert (mesh.rank, mesh.size, mesh.device) == (0, 1,
+                                                       torch.device("cpu"))
+        dp_calls = []
+        monkeypatch.setattr(ttrainer, "dp_train_step",
+                            lambda *a, **k: dp_calls.append(1))
+        with_mesh = Trainer(ts, cams, images, cfg, mesh=mesh)
+        plain = Trainer(ts, cams, images, cfg)
+        for tr in (with_mesh, plain):
+            tr.step()
+        assert not dp_calls and with_mesh.iteration == 1
+        for k, v in plain.scene.params().items():
+            torch.testing.assert_close(with_mesh.scene.params()[k], v,
+                                       rtol=0, atol=0)
+        other = dataclasses.replace(mesh, device=torch.device("meta"))
+        with pytest.raises(ValueError, match="mesh"):
+            Trainer(ts, cams, images, cfg, mesh=other)
+    finally:
+        mesh.close()
     tr = Trainer(ts, cams, images, cfg)
     assert tr.next_densify_iteration() is None
     tr.set_config({"densify": {"schedule": {"enabled": True}}})

@@ -3,6 +3,8 @@
   python -m webdgs_tpu_torch train --points points3D.bin \
       --cameras images.bin cameras.bin --images images/ \
       --out ckpt.npz [--export-ply out.ply] [--no-densify] [--device cuda]
+  torchrun --nproc_per_node=N -m webdgs_tpu_torch train --shard dp ...
+                                         # view-data-parallel over N cards
   python -m webdgs_tpu_torch render scene.ply|ckpt.npz --out img.png
   python -m webdgs_tpu_torch view   scene.ply --out frames/ --orbit 24
   python -m webdgs_tpu_torch export ckpt.npz --out scene.ply
@@ -11,8 +13,11 @@
       --images ...                       # live training in the browser
 
 Every command runs on ``--device`` (default ``cuda``) and raises when that
-device is unavailable.  ``--shard dp|gs`` and the benchmark are later
-slices of the port.
+device is unavailable.  ``train --shard dp`` trains view-data-parallel, one
+process per card under ``torchrun`` (without a launcher, a world of one);
+only rank 0 logs and writes the checkpoint, the PLY and the report.
+``--shard gs`` (Gaussian-sharded) and the benchmark are later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -39,8 +44,9 @@ def _add_train_args(t, required: bool):
     t.add_argument("--holdout-every", type=int, default=0,
                    help="hold out every k-th view for evaluation (3DGS "
                    "convention: 8); 0 trains on everything")
-    t.add_argument("--shard", choices=("none",), default="none",
-                   help="multi-device training is not ported: 'none' only")
+    t.add_argument("--shard", choices=("none", "dp", "gs"), default="none",
+                   help="'dp': view-data-parallel across the ranks of "
+                   "torchrun (one card each); 'gs' is not ported yet")
     # loss
     t.add_argument("--lambda-l1", type=float, default=0.8)
     t.add_argument("--lambda-l2", type=float, default=0.0)
@@ -119,7 +125,18 @@ def _build_trainer(args):
                                                load_trainer_config)
     from webdgs_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.shard == "gs":
+        raise SystemExit("--shard gs (Gaussian-sharded training) is a later "
+                         "slice of the port (ROADMAP Queue 1 item 5); use "
+                         "--shard dp or none")
+    if args.shard == "dp":
+        from webdgs_tpu_torch.parallel.sharding import make_mesh
+        mesh = make_mesh(args.device, axis_name="dp")
+        device = mesh.device
+        _lead_print(mesh, f"sharding 'dp' over {mesh.size} device(s)")
+    else:
+        device = resolve_device(args.device)
     scene = load_point_cloud(args.points, device)
     cameras = load_cameras(args.cameras)
     images = load_images(args.images)
@@ -136,9 +153,9 @@ def _build_trainer(args):
                    [m for i, m in enumerate(images) if i % k == 0])
         cameras = [c for i, c in enumerate(cameras) if i % k != 0]
         images = [m for i, m in enumerate(images) if i % k != 0]
-    print(f"dataset: {len(cameras)} train / {len(holdout[0])} holdout "
-          f"views; {int(scene.num_alive())} initial points; device "
-          f"{device}")
+    _lead_print(mesh, f"dataset: {len(cameras)} train / {len(holdout[0])} "
+                f"holdout views; {int(scene.num_alive())} initial points; "
+                f"device {device}")
 
     cfg = TrainerConfig(
         loss=LossConfig(lambda_l1=args.lambda_l1, lambda_l2=args.lambda_l2,
@@ -168,26 +185,54 @@ def _build_trainer(args):
     if args.config:
         cfg = load_trainer_config(args.config, base=cfg)
 
-    trainer = Trainer(scene, cameras, images, cfg, _settings(args))
+    trainer = Trainer(scene, cameras, images, cfg, _settings(args),
+                      mesh=mesh)
     if args.resume:
         from webdgs_tpu_torch.io.checkpoint import load_checkpoint
+        # every rank loads the same file: identical state everywhere
         ck_scene, ck_opt, meta = load_checkpoint(args.resume, device)
         trainer.resume_from(ck_scene, ck_opt, meta.get("iteration") or 0)
-        print(f"resumed from {args.resume} at iteration "
-              f"{trainer.iteration}")
+        _lead_print(mesh, f"resumed from {args.resume} at iteration "
+                    f"{trainer.iteration}")
     trainer.dataset_cameras = cameras
     return trainer, holdout
 
 
+def _lead_print(mesh, line: str) -> None:
+    """Print on rank 0 only (every process without a mesh)."""
+    if mesh is None or mesh.rank == 0:
+        print(line, flush=True)
+
+
+def _kernel_launches() -> dict:
+    """The launch count of every kernel wrapper in this process."""
+    from webdgs_tpu_torch.ops import (expand, importance, rasterize, segsum,
+                                      tile_loss)
+    return {f.__name__: f.kernel_launches for f in (
+        expand.expand_fields, rasterize.rasterize_tiles,
+        tile_loss.tile_loss_tiles, rasterize.rasterize_tiles_backward,
+        segsum.segment_sum_rows, importance.entry_counts)}
+
+
 def cmd_train(args):
+    trainer, holdout = _build_trainer(args)
+    try:
+        trainer.train(log_every=args.log_every,
+                      checkpoint_every=args.checkpoint_every,
+                      checkpoint_path=args.out)
+        if trainer.mesh is None or trainer.mesh.rank == 0:
+            _finish_training(args, trainer, holdout)
+    finally:
+        if trainer.mesh is not None:
+            trainer.mesh.close()
+
+
+def _finish_training(args, trainer, holdout) -> None:
+    """The checkpoint, the PLY, the evaluation and the report."""
     import json
     from webdgs_tpu_torch.io.checkpoint import save_checkpoint
     from webdgs_tpu_torch.io.ply import save_ply
 
-    trainer, holdout = _build_trainer(args)
-    trainer.train(log_every=args.log_every,
-                  checkpoint_every=args.checkpoint_every,
-                  checkpoint_path=args.out)
     # persist the model before the evaluation
     if args.out:
         save_checkpoint(args.out, trainer.scene, trainer.opt_state,
@@ -200,6 +245,7 @@ def cmd_train(args):
     report = {"iterations": trainer.iteration,
               "points": trainer.num_points,
               "iters_per_sec": round(trainer.iters_per_sec, 2),
+              "kernel_launches": _kernel_launches(),
               "train": trainer.evaluate()}
     if holdout[0]:
         report["holdout"] = trainer.evaluate(views=holdout)
@@ -262,6 +308,9 @@ def cmd_serve(args):
         if not (args.points and args.cameras and args.images):
             raise SystemExit("serve --train requires --points, --cameras "
                              "and --images")
+        if args.shard != "none":
+            raise SystemExit("serve --train trains on one device "
+                             "(--shard none)")
         trainer, holdout = _build_trainer(args)
         scene = trainer.scene
     elif not args.scene:

@@ -1,5 +1,5 @@
 """EWA projection: 3D Gaussians -> screen-space splats (counterpart of
-webdgs_tpu/ops/projection.py:50-336).
+webdgs_tpu/ops/projection.py:50-362).
 
 Plain torch over (N,) rows, in the reference's operation order, and
 differentiable by autograd.  Gradients are cut (``detach``) exactly where
@@ -51,6 +51,13 @@ class SplatAux(NamedTuple):
     radius_capped: torch.Tensor  # (N,) bool
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(N, 4) (w, x, y, z) -> (N, 3, 3); the standard form, no
+    normalisation."""
+    rows = _rotmat_rows(q.unbind(-1))
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def _rotmat_rows(q):
     """Rotation matrix entries as nine (N,) rows from unnormalised quat
     rows."""
@@ -72,6 +79,12 @@ def _cov3d_rows(q, s2):
                 + m[i][2] * m[j][2] * s2_)
 
     return sig(0, 0), sig(0, 1), sig(0, 2), sig(1, 1), sig(1, 2), sig(2, 2)
+
+
+def covariance3d(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Sigma = R diag(s^2) R^T, (N, 3, 3)."""
+    rot = quat_to_rotmat(quats)
+    return torch.einsum("nij,nj,nkj->nik", rot, scales * scales, rot)
 
 
 def project_gaussians(
@@ -99,7 +112,10 @@ def project_gaussians(
     dev = means.device
 
     view, proj = camera.view, camera.proj
-    viewport = torch.tensor([img_w, img_h], dtype=torch.float32, device=dev)
+    # (img_w, img_h) as float32, built on the device: an upload of host
+    # values would wait for it
+    viewport = (torch.arange(2, dtype=torch.float32, device=dev)
+                * float(img_h - img_w) + float(img_w))
     focal_x, focal_y = camera.focal[0], camera.focal[1]
 
     m0, m1, m2 = means[:, 0], means[:, 1], means[:, 2]
@@ -272,3 +288,28 @@ def project_gaussians(
         radius_capped=radius_capped & visible,
     )
     return attrs, aux
+
+
+def restrict_aux_to_band(aux: SplatAux, row0: int | torch.Tensor,
+                         rows: int) -> SplatAux:
+    """Clip each Gaussian's tile rect to the tile rows [row0, row0 + rows)
+    and rebase its tile ids to the band.
+
+    Shared by the serial-band renderer and the tile-sharded render.
+    ``row0`` is a Python int or a 0-d integer tensor on the device of
+    ``aux``; either way nothing is read back or uploaded (max and min are
+    written as clamps of differences, which take both)."""
+    ty0 = aux.tile_min[:, 1]
+    ty1 = ty0 + aux.tile_dims[:, 1] - 1
+    rel0 = torch.clamp(ty0 - row0, min=0)  # max(ty0, row0) - row0
+    rel1 = torch.clamp(ty1 - row0, max=rows - 1)  # min(ty1, last) - row0
+    tiles_y = rel1 - rel0 + 1
+    visible = aux.visible & (tiles_y > 0)
+    tiles_y = torch.where(visible, tiles_y, 0)
+    tiles_x = aux.tile_dims[:, 0]
+    return SplatAux(
+        depth=aux.depth, visible=visible,
+        tile_min=torch.stack([aux.tile_min[:, 0], rel0], dim=-1),
+        tile_dims=torch.stack([tiles_x, tiles_y], dim=-1),
+        num_tiles=torch.where(visible, tiles_x * tiles_y, 0),
+        radius_capped=aux.radius_capped)

@@ -65,6 +65,8 @@ NUM_GPIX = 5
 # to 48 KB without an opt-in attribute
 _RECORD_FLOATS = 12
 _MAX_CHUNK = 48 * 1024 // (2 * 4 * _RECORD_FLOATS)
+# elements of one (tiles, P, K) temporary of the plain forward
+_PLAIN_GROUP_ELEMS = 2 ** 26
 
 
 def _check_inputs(attrs16, tile_offsets, ntx, nty, settings):
@@ -151,38 +153,45 @@ def rasterize_tiles_plain(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
     nmax = torch.zeros_like(log_t_un)
     acc = torch.zeros((n_tiles, 4, p), dtype=torch.float32, device=dev)
 
+    # the live tiles take a chunk in groups, so that each (t, P, K)
+    # temporary holds at most _PLAIN_GROUP_ELEMS elements whatever the
+    # frame (an 8K band has ~35k tiles); tiles are independent
+    group = max(1, _PLAIN_GROUP_ELEMS // (p * k))
     n_chunks = int(nch.max()) if n_tiles else 0
     for c in range(n_chunks):
         # tiles with a chunk left and an unsaturated pixel (the TPU
         # kernel's while-loop test, rasterize.py:318-320)
         live = (c < nch) & (log_t_un.amax(dim=(1, 2)) >= log_t_min)
-        tl = torch.nonzero(live).squeeze(1)
-        if tl.numel() == 0:
+        live_tiles = torch.nonzero(live).squeeze(1)
+        if live_tiles.numel() == 0:
             break
-        sl = uo[tl, None] + c * k + lane  # (t, K) entry slots
-        in_range = sl < (uo + cnt)[tl, None]
-        sub = attrs16[:, torch.clamp(sl, max=e_len - 1)]  # (16, t, K)
-        sub = sub.permute(1, 0, 2)[:, :, None, :]  # (t, 16, 1, K)
-        alpha, _, _, _, keep = _chunk_alpha(sub, pxf[tl], pyf[tl], settings)
-        alpha = torch.where(keep & in_range[:, None, :], alpha, 0.0)
+        for tl in live_tiles.split(group):
+            sl = uo[tl, None] + c * k + lane  # (t, K) entry slots
+            in_range = sl < (uo + cnt)[tl, None]
+            sub = attrs16[:, torch.clamp(sl, max=e_len - 1)]  # (16, t, K)
+            sub = sub.permute(1, 0, 2)[:, :, None, :]  # (t, 16, 1, K)
+            alpha, _, _, _, keep = _chunk_alpha(sub, pxf[tl], pyf[tl],
+                                                settings)
+            alpha = torch.where(keep & in_range[:, None, :], alpha, 0.0)
 
-        lt = log_t_un[tl]
-        alog = torch.log1p(-alpha)
-        alog_incl = torch.cumsum(alog, dim=2)
-        t_excl = torch.exp(alog_incl - alog + lt)
-        incl = (t_excl >= settings.t_threshold).to(torch.float32)
-        w = alpha * t_excl * incl  # (t, P, K)
+            lt = log_t_un[tl]
+            alog = torch.log1p(-alpha)
+            alog_incl = torch.cumsum(alog, dim=2)
+            t_excl = torch.exp(alog_incl - alog + lt)
+            incl = (t_excl >= settings.t_threshold).to(torch.float32)
+            w = alpha * t_excl * incl  # (t, P, K)
 
-        c4 = torch.cat([sub[:, ROW_R:ROW_B + 1, 0, :],
-                        torch.ones_like(sub[:, 0:1, 0, :])], dim=1)
-        acc[tl] += torch.einsum("tck,tpk->tcp", c4, w)
-        log_t_un[tl] = lt + alog_incl[:, :, k - 1:k]
-        log_t_gated[tl] += (alog * incl).sum(dim=2, keepdim=True)
-        if track_ncontrib:
-            pos = (c * k + lane + 1).to(torch.float32)
-            contrib = (alpha > 0.0) & (incl > 0.0)
-            cand = torch.where(contrib, pos, 0.0).amax(dim=2, keepdim=True)
-            nmax[tl] = torch.maximum(nmax[tl], cand)
+            c4 = torch.cat([sub[:, ROW_R:ROW_B + 1, 0, :],
+                            torch.ones_like(sub[:, 0:1, 0, :])], dim=1)
+            acc[tl] += torch.einsum("tck,tpk->tcp", c4, w)
+            log_t_un[tl] = lt + alog_incl[:, :, k - 1:k]
+            log_t_gated[tl] += (alog * incl).sum(dim=2, keepdim=True)
+            if track_ncontrib:
+                pos = (c * k + lane + 1).to(torch.float32)
+                contrib = (alpha > 0.0) & (incl > 0.0)
+                cand = torch.where(contrib, pos, 0.0).amax(dim=2,
+                                                           keepdim=True)
+                nmax[tl] = torch.maximum(nmax[tl], cand)
 
     out = torch.zeros((n_tiles, NUM_OUT, p), dtype=torch.float32, device=dev)
     out[:, 0:4] = acc

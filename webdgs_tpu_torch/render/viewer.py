@@ -2,7 +2,9 @@
 arrays or PNG files (counterpart of webdgs_tpu/render/viewer.py:22-256).
 
 The viewer renders on one device, ``"cuda"`` by default.  There is no CPU
-fallback: asking for CUDA where there is none raises.
+fallback: asking for CUDA where there is none raises.  Frames at or above
+the 16-bit tile-key limit (8K and up at 32x16 tiles) render in serial
+bands, in both render modes.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
                                      quantize_budget)
 from webdgs_tpu_torch.core.camera import Camera, CameraData, make_camera
 from webdgs_tpu_torch.core.scene import GaussianScene
+from webdgs_tpu_torch.ops import binning as binning_ops
 from webdgs_tpu_torch.render.camera_control import FlyCamera
-from webdgs_tpu_torch.render.renderer import (check_frame_supported, render,
+from webdgs_tpu_torch.render.renderer import (render, render_banded,
                                               render_points)
 
 
@@ -88,7 +91,8 @@ class Viewer:
         self.gaussian_scaling = float(settings.gaussian_scaling)
         # adaptive tile-entry capacity, sized from the observed demand
         self._entry_cap: int | None = None
-        # tile entries the last gaussian-mode frame asked for
+        # tile entries the last gaussian-mode frame asked for (in a banded
+        # frame, its largest band)
         self.entry_demand: int | None = None
 
     def set_render_mode(self, mode: str) -> None:
@@ -132,8 +136,10 @@ class Viewer:
         renders at a reduced viewport (same fov)."""
         w = max(1, self.width // downscale)
         h = max(1, self.height // downscale)
-        check_frame_supported(w, h, self.settings)
         cam = self.camera(w, h)
+        ntx, nty = binning_ops.tile_grid(w, h, self.settings)
+        if ntx * nty >= binning_ops.TILE_KEY_LIMIT:
+            return self._render_banded(cam, w, h, downscale)
         with torch.no_grad():
             if self.render_mode == "pointcloud":
                 img = render_points(
@@ -149,6 +155,27 @@ class Viewer:
         self.entry_demand = int(res.binning.expansion_entries)
         if downscale == 1:
             self._adapt_entry_cap(self.entry_demand)
+        return image
+
+    def _render_banded(self, cam: Camera, w: int, h: int,
+                       downscale: int) -> np.ndarray:
+        """A frame above the tile-key limit, in serial bands (both modes);
+        the entry capacity adapts to the largest band's demand, and only
+        at full resolution, as in the plain branch."""
+        with torch.no_grad():
+            img, observed = render_banded(
+                self.scene, cam, w, h, self.settings,
+                entry_capacity=self._entry_cap,
+                gaussian_scaling=self.gaussian_scaling,
+                mode=self.render_mode, point_size_px=self.point_size_px,
+                return_entries=True)
+            image = img.cpu().numpy()
+        if observed is not None:
+            observed = int(observed)
+            if self.render_mode == "gaussian":
+                self.entry_demand = observed
+            if downscale == 1:
+                self._adapt_entry_cap(observed)
         return image
 
     def _adapt_entry_cap(self, observed: int) -> None:
@@ -185,8 +212,8 @@ def render_orbit(scene: GaussianScene, out_dir: str | os.PathLike,
                  settings: RenderSettings = DEFAULT_SETTINGS,
                  radius: float | None = None) -> list[str]:
     """Render an orbit around the alive-point centroid to PNG frames, on
-    the scene's device."""
-    check_frame_supported(width, height, settings)
+    the scene's device.  Above the tile-key limit ``render`` raises, as in
+    the reference."""
     center, auto_radius = _frame_center_radius(scene)
     radius = auto_radius if radius is None else radius
     os.makedirs(out_dir, exist_ok=True)

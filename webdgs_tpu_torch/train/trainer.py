@@ -1,4 +1,4 @@
-"""The training orchestrator, single-device (counterpart of
+"""The training orchestrator (counterpart of
 webdgs_tpu/train/trainer.py:44-621).
 
 Owns the scene and the optimizer state, draws a random (camera, image)
@@ -13,18 +13,22 @@ A densify event renders ``metric_views`` views drawn with the same
 ``densify_prune`` with noise from a ``torch.Generator`` seeded from
 ``config.seed``, and swaps the state in; capacity grows geometrically when
 the headroom runs out.  An event reads its point counts and decisions back
-in one transfer, but it waits on the device more often than that: each
-metric view makes five synchronizing calls (the bounds checks of the
-rasterize and importance wrappers read offsets back twice, and the metric
-camera, the projection and the background composite upload host constants
-with blocking copies), and the view indices are uploaded once; the
-segment sum reads nothing back.  The multi-device mesh is a later slice of the port: ``mesh=``
-raises ``NotImplementedError``.
+in one transfer; it also waits on the device where the metric camera and
+the view indices are uploaded (PERF.md section 5 lists the lines).
+
+With ``mesh=`` (``parallel/sharding.py:make_mesh``) of more than one rank,
+each step draws one view per rank from the shared ``random.Random`` (every
+rank draws the same indices) and trains them view-data-parallel through
+``dp_train_step``; densify events run replicated, every rank taking the
+same decisions from the same state, since the kernels are deterministic.
+Only rank 0 logs and checkpoints in ``train``.  A mesh of one rank takes
+the single-device step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 import time
 
@@ -40,6 +44,7 @@ from webdgs_tpu_torch.ops.adam import AdamState, init_adam_state
 from webdgs_tpu_torch.ops.densify import densify_prune
 from webdgs_tpu_torch.ops.importance import multiview_importance_counts
 from webdgs_tpu_torch.ops.loss import loss_metrics, pixel_loss_gradient, ssim
+from webdgs_tpu_torch.parallel.sharding import dp_train_step
 from webdgs_tpu_torch.render.renderer import render
 from webdgs_tpu_torch.train.config import TrainerConfig, _merge_dataclass
 from webdgs_tpu_torch.train.step import train_step
@@ -71,17 +76,20 @@ class Trainer:
                  settings: RenderSettings = DEFAULT_SETTINGS,
                  initial_capacity: int | None = None, mesh=None):
         """Trains on ``scene.device``; ``initial_capacity`` sets the
-        scene's padded capacity (default: the alive count rounded up)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training (mesh=) is not ported yet; "
-                "webdgs_tpu_torch trains on one device")
+        scene's padded capacity (default: the alive count rounded up).
+        ``mesh``: a ``parallel.sharding.Mesh`` whose device holds the
+        scene; with more than one rank every step trains on one view per
+        rank, data-parallel."""
+        if mesh is not None and mesh.device != scene.device:
+            raise ValueError(f"the scene is on {scene.device}, the mesh's "
+                             f"rank on {mesh.device}")
         if len(cameras) != len(images):
             raise ValueError(
                 f"cameras ({len(cameras)}) and images ({len(images)}) must "
                 "pair by index")
         self.config = config
         self.settings = settings
+        self.mesh = mesh
         self.device = scene.device
         lam = (config.loss.lambda_l1 + config.loss.lambda_l2
                + config.loss.lambda_dssim)
@@ -163,12 +171,21 @@ class Trainer:
         """One training iteration."""
         t0 = time.perf_counter()
         (w, h), g = self._pick_group()
-        idx = self.rng.randrange(g["count"])
-        self.scene, self.opt_state, metrics = train_step(
-            self.scene, self.opt_state, g["cams"][idx], g["imgs"][idx],
-            img_w=w, img_h=h, loss_cfg=self.config.loss,
-            hp=self.config.adam, settings=self.settings,
-            entry_capacity=self._entry_cap())
+        step_kw = dict(img_w=w, img_h=h, loss_cfg=self.config.loss,
+                       hp=self.config.adam, settings=self.settings,
+                       entry_capacity=self._entry_cap())
+        if self.mesh is not None and self.mesh.size > 1:
+            # every rank draws the same indices; rank b trains view b
+            idxs = [self.rng.randrange(g["count"])
+                    for _ in range(self.mesh.size)]
+            self.scene, self.opt_state, metrics = dp_train_step(
+                self.scene, self.opt_state, [g["cams"][i] for i in idxs],
+                [g["imgs"][i] for i in idxs], self.mesh, **step_kw)
+        else:
+            idx = self.rng.randrange(g["count"])
+            self.scene, self.opt_state, metrics = train_step(
+                self.scene, self.opt_state, g["cams"][idx], g["imgs"][idx],
+                **step_kw)
         self.iteration += 1
         self._maybe_adapt_entry_cap(metrics)
         if self.config.densify.schedule.should_densify(self.iteration):
@@ -395,9 +412,37 @@ class Trainer:
     def train(self, num_iterations: int | None = None,
               log_every: int = 100, log_fn=print,
               checkpoint_every: int = 0,
-              checkpoint_path: str | None = None) -> dict:
+              checkpoint_path: str | None = None,
+              profile_dir: str | None = None) -> dict:
         """Run ``num_iterations`` steps (default: up to
-        ``config.max_iterations``); returns the last step's metrics."""
+        ``config.max_iterations``); returns the last step's metrics.  Under
+        a mesh only rank 0 logs and checkpoints.  ``profile_dir``: trace
+        the run with ``torch.profiler`` (the card's kernels too, on CUDA)
+        and write a Chrome trace there."""
+        lead = self.mesh is None or self.mesh.rank == 0
+        if not lead:
+            log_fn, checkpoint_every = None, 0
+        prof = None
+        if profile_dir:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        try:
+            self._train_loop(num_iterations, log_every, log_fn,
+                             checkpoint_every, checkpoint_path)
+        finally:
+            if prof is not None:
+                prof.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                rank = 0 if self.mesh is None else self.mesh.rank
+                prof.export_chrome_trace(os.path.join(
+                    profile_dir, f"trace_rank{rank}.json"))
+        return {k: float(v) for k, v in self.last_metrics.items()}
+
+    def _train_loop(self, num_iterations, log_every, log_fn,
+                    checkpoint_every, checkpoint_path) -> None:
         rollbacks = 0
         self._snapshot()
         check_every = min(log_every or self.SNAPSHOT_INTERVAL,
@@ -437,4 +482,3 @@ class Trainer:
                                 self.opt_state, iteration=self.iteration)
             if self.iteration >= self.config.max_iterations:
                 break
-        return {k: float(v) for k, v in self.last_metrics.items()}
