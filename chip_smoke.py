@@ -91,6 +91,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
      synchronizing calls by line (none from parallel/sharding.py), one
      step against the single-device composition at rtol 2e-4 / atol 2e-6,
      and render_tile_sharded against render;
+  6d. gs: on a 1-rank NCCL group, the band form of the tile-loss kernel at
+     the 1M sh3 / 1920x1080 step's forward tiles split into 2, 3 and 4
+     bands (each band against its plain version; the bands, garbage halos
+     at the frame's borders, reassembling the full-frame kernel's dpix bit
+     for bit; each band launch timed queued beside its bound);
+     render_gaussian_sharded against render with the f32 exchange and at
+     the reference test's f16 class with the f16 one (ms per frame); 3
+     gs_train_steps through all five training kernels (counters reset
+     just before), ms per step, peak memory, one step's synchronizing
+     calls by line (at most adam_step's 3, none from
+     parallel/sharding.py) and the adaptive-capacity metrics; one f32 step
+     against train_step (rtol 2e-4 / atol 2e-6) and twice from one state
+     (bit-identical), the f16 step's loss within rtol 2e-3; one step on a
+     1x1 dp x band mesh;
   7. server: a view-mode ViewerServer on 127.0.0.1 answers 3 JPEG frames,
      a control post and /stats over HTTP;
   8. the entry point: ``python -m webdgs_tpu_torch train --no-densify`` on
@@ -1510,7 +1524,9 @@ def sync_tally(fn):
             torch.cuda.set_sync_debug_mode("default")
     syncs: dict[str, int] = {}
     for wn in caught:
-        if "synchronizing" in str(wn.message):
+        # "called a synchronizing CUDA operation"; not the debug mode's own
+        # note that it is a prototype
+        if "called a synchronizing" in str(wn.message):
             where = f"{os.path.relpath(wn.filename)}:{wn.lineno}"
             syncs[where] = syncs.get(where, 0) + 1
     return out, syncs
@@ -2249,6 +2265,284 @@ def cli_dp_phase(tmp: str, data: str, sparse: str,
     return {"launches": launches, "seconds": cli_s}
 
 
+def band_loss_check(out, target, w: int, h: int, ntx: int, nty: int, cfg,
+                    settings, splits=(2, 3, 4)) -> dict:
+    """The band form of the tile-loss kernel at one step's forward tiles:
+    for each split into D bands (the grid padded to a multiple of D, with
+    the true neighbour slices as halos and garbage at the frame's
+    borders), each band against its plain version (LOSS_ATOL), the bands'
+    dpix reassembling the full-frame kernel's bit for bit and their
+    summed metric partials within 1e-6 relative, tiles wholly below the
+    frame zero; each band launch timed queued beside its bound (bytes:
+    the band's 4 used tile channels, its target rows and the two slices
+    in, dpix and sums out; operations: ~150 per valid pixel and
+    channel)."""
+    import torch
+    from webdgs_tpu_torch.ops import tile_loss
+    full_d, full_s = tile_loss.tile_loss_tiles(out, target, w, h, ntx, nty,
+                                               cfg, settings)
+    th, tw, npx = settings.tile_h, settings.tile_w, settings.tile_px
+    gen = torch.Generator(device=out.device).manual_seed(7)
+    res, errs, rels = {}, [], []
+    for d in splits:
+        rows = -(-nty // d)
+        tiles = torch.cat([out, torch.zeros(((rows * d - nty) * ntx,)
+                                            + tuple(out.shape[1:]),
+                                            dtype=out.dtype,
+                                            device=out.device)])
+        dpix, sums, band_ms, band_plain_ms, bounds = [], [], [], [], []
+        for b in range(d):
+            band = tiles[b * rows * ntx:(b + 1) * rows * ntx]
+            garbage = torch.rand((ntx, 8, 2 * tw), generator=gen,
+                                 device=out.device) * 5.0
+            top = (tile_loss.halo_slices(tiles[(b - 1) * rows * ntx:
+                                               b * rows * ntx], ntx,
+                                         settings)[0]
+                   if b > 0 else garbage)
+            bot = (tile_loss.halo_slices(tiles[(b + 1) * rows * ntx:
+                                               (b + 2) * rows * ntx], ntx,
+                                         settings)[1]
+                   if b < d - 1 else garbage)
+            args = (band, top, bot, target, b * rows, w, h, ntx, rows, cfg,
+                    settings)
+            dk, sk = tile_loss.band_tile_loss_gradient(*args)
+            dp, sp = tile_loss.band_tile_loss_gradient_plain(*args)
+            errs.append(float((dk - dp).abs().max()))
+            rels.append(float(((sk.sum(0) - sp.sum(0)).abs()
+                               / sp.sum(0).abs().clamp(min=1e-30)).max()))
+            dpix.append(dk)
+            sums.append(sk)
+            band_ms.append(queued_ms(
+                lambda a=args: tile_loss._band_tile_loss_cuda(*a), 50))
+            band_plain_ms.append(cuda_ms(
+                lambda a=args: tile_loss.band_tile_loss_gradient_plain(*a),
+                1, warmup=1))
+            h_b = max(min(h - b * rows * th, rows * th), 0)  # frame rows
+            n_t = rows * ntx
+            bounds.append(bound_ms(
+                4 * (4 * n_t * npx + 3 * w * h_b + 2 * 4 * ntx * 2 * tw
+                     + 8 * n_t * npx + 4 * n_t), 150 * 3 * w * h_b))
+        dpix = torch.cat(dpix)
+        same = bool(torch.equal(dpix[:ntx * nty], full_d))
+        zeros = not bool(dpix[ntx * nty:].any())
+        tot = torch.cat(sums).sum(0)
+        sums_rel = float(((tot - full_s.sum(0)).abs()
+                          / full_s.sum(0).abs().clamp(min=1e-30)).max())
+        check(same and zeros and sums_rel <= 1e-6,
+              f"band tile loss, {d} bands: dpix bit-identical {same}, "
+              f"padding zero {zeros}, sums rel err {sums_rel}")
+        res[d] = {"rows": rows, "band_ms": band_ms,
+                  "band_plain_ms": band_plain_ms,
+                  "bound_ms": [x[0] for x in bounds],
+                  "bound_by": [x[1] for x in bounds], "sums_rel": sums_rel}
+        print(f"[gs] band tile loss, 1M sh3 {w}x{h} step split into {d} "
+              f"bands of {rows} tile rows (garbage halos at the borders): "
+              f"dpix bit-identical to the full-frame kernel, padding tiles "
+              f"zero, summed partials rel err {sums_rel:.2e}; band kernel "
+              f"queued {[round(x, 4) for x in band_ms]} ms (full frame "
+              f"split), plain {[round(x, 3) for x in band_plain_ms]} ms; "
+              f"bound {[round(x[0], 4) for x in bounds]} ms "
+              f"({bounds[0][1]})", flush=True)
+    err, rel = max(errs), max(rels)
+    check(err <= LOSS_ATOL and rel <= 1e-5,
+          f"band tile loss vs its plain version: dpix err {err}, sums rel "
+          f"err {rel}")
+    print(f"[gs] band tile loss vs its plain version, every band of the 3 "
+          f"splits: max abs err {err:.3e} (<= {LOSS_ATOL}), sums rel err "
+          f"{rel:.2e}", flush=True)
+    two = res[2]
+    return {"max_abs_err": err, "sums_rel_err": rel,
+            "bit_identical_to_full_frame": True,
+            # the frame in two bands: both launches
+            "ms": sum(two["band_ms"]), "plain_ms": sum(two["band_plain_ms"]),
+            "bound_ms": sum(two["bound_ms"]), "bound_by": two["bound_by"][0],
+            "library_ms": None, "splits": res}
+
+
+def gs_phase(dev, big, settings, size=(1920, 1080)) -> dict:
+    """[gs]: the Gaussian-sharded path on a 1-rank NCCL group (the one
+    card holds the one shard): the band tile loss at the 1M sh3 step's
+    forward tiles (band_loss_check); ``render_gaussian_sharded`` with the
+    f32 exchange against ``render`` and with the f16 exchange at the
+    reference test's f16 class (max < 2e-2, mean < 2e-4), no drops, ms
+    per frame; 3 ``gs_train_step``s on a perturbed target through all
+    five training kernels (counters reset just before), ms per step, peak
+    memory, one step's synchronizing calls by line (at most adam_step's
+    3, none from parallel/sharding.py), the adaptive-capacity metrics;
+    one f32 step against ``train_step`` (rtol 2e-4 / atol 2e-6) and twice
+    from one state (bit-identical), the f16 step's loss within rtol 2e-3;
+    and one step on a 1x1 dp x band mesh."""
+    import torch
+    import torch.distributed as dist
+    import dataclasses
+    from webdgs_tpu_torch.config import quantize_budget
+    from webdgs_tpu_torch.core.camera import default_camera
+    from webdgs_tpu_torch.ops import binning
+    from webdgs_tpu_torch.ops.adam import init_adam_state
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    from webdgs_tpu_torch.ops.projection import project_gaussians
+    from webdgs_tpu_torch.parallel.sharding import (gaussian_shard,
+                                                    gs_train_step, make_mesh,
+                                                    render_gaussian_sharded)
+    from webdgs_tpu_torch.render.renderer import render, render_from_attrs
+    from webdgs_tpu_torch.train.step import train_step
+
+    W, H = size
+    exact = dataclasses.replace(settings, exchange_f16=False)
+    cam = default_camera(W, H, position=(0.0, 0.0, -10.0), device=dev)
+    rng = np.random.default_rng(6)
+    with torch.no_grad():
+        pert = big.with_params({
+            **big.params(),
+            "means": big.means + torch.tensor(
+                rng.normal(0, 0.01, (big.capacity, 3)), dtype=torch.float32,
+                device=dev)})
+        target = render(pert, cam, W, H, settings).image
+        del pert
+        ref = render(big, cam, W, H, settings)
+        demand = int(ref.binning.expansion_entries)
+        attrs, aux = project_gaussians(big.params(), big.alive, cam, W, H,
+                                       big.sh_deg, settings)
+        out, _ = render_from_attrs(attrs, aux, W, H, settings)
+        del attrs, aux
+    cap = quantize_budget(demand * 1.2, settings.chunk, settings.chunk * 8)
+    ntx, nty = binning.tile_grid(W, H, settings)
+    band = band_loss_check(out, target, W, H, ntx, nty, LossConfig(),
+                           settings)
+    del out
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh()
+    try:
+        check(mesh.size == 1 and mesh.band_size == 1 and
+              dist.get_backend() == "nccl", f"make_mesh(): {mesh}")
+        shard = gaussian_shard(big, mesh)
+        img = {}
+        for name, st in (("f32", exact), ("f16", settings)):
+            img[name], dropped = render_gaussian_sharded(shard, cam, W, H,
+                                                         mesh, st)
+            check(int(dropped) == 0, f"gs render ({name}) dropped "
+                  f"{int(dropped)}")
+        frame_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_gaussian_sharded(shard, cam, W, H, mesh, settings)
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+        r_err = float((img["f32"] - ref.image).abs().max())
+        r_same = bool(torch.equal(img["f32"], ref.image))
+        e16 = (img["f16"] - ref.image).abs()
+        f16_max, f16_mean = float(e16.max()), float(e16.mean())
+        print(f"[gs] render_gaussian_sharded 1M sh3 {W}x{H}, 1 rank: f32 "
+              f"exchange vs render max abs err {r_err:.3e}, bit-identical "
+              f"{r_same}; f16 exchange max {f16_max:.3e} (< 2e-2), mean "
+              f"{f16_mean:.3e} (< 2e-4); 0 dropped; f16 frames "
+              f"{[round(t, 2) for t in frame_ms]} ms", flush=True)
+        check(r_err <= RAST_ATOL and f16_max < 2e-2 and f16_mean < 2e-4,
+              f"gs render: f32 err {r_err}, f16 max {f16_max} mean "
+              f"{f16_mean}")
+        del img, ref, e16
+        torch.cuda.empty_cache()
+
+        opt0 = init_adam_state(shard.params())
+        kw = dict(img_w=W, img_h=H, settings=settings, entry_capacity=cap)
+        s_cur, o_cur, _ = gs_train_step(shard, opt0, cam, target, mesh,
+                                        **kw)  # warm-up
+        reset_kernel_counters()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_cur, o_cur, m_cur = gs_train_step(s_cur, o_cur, cam, target,
+                                                mesh, **kw)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: v for k, v in kernel_counters().items()
+                    if k in TRAIN_KERNELS}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel of the gs step did not launch: {launches}")
+        check(math.isfinite(float(m_cur["loss"])) and
+              bool(torch.isfinite(s_cur.means).all()), "gs training")
+        adapt = {k: int(m_cur[k]) for k in ("entries_dropped",
+                                            "entries_local_max", "send_max",
+                                            "tile_entries", "visible")}
+        _, syncs = sync_tally(lambda: gs_train_step(s_cur, o_cur, cam,
+                                                    target, mesh, **kw))
+        torch.cuda.synchronize()
+        mine = {k: v for k, v in syncs.items() if "parallel/sharding" in k}
+        check(not mine and sum(syncs.values()) <= 3,
+              f"the gs step synchronized: {syncs}")
+        print(f"[gs] gs_train_step 1M sh3 {W}x{H}, 1-rank NCCL band group, "
+              f"3 steps after a warm-up: {[round(t, 2) for t in step_ms]} "
+              f"ms/step; peak {peak_gb:.2f} GiB; loss "
+              f"{float(m_cur['loss']):.5f}; capacity {cap}; {adapt}; one "
+              f"step waits on the device {sum(syncs.values())} times "
+              f"{syncs}, none from parallel/sharding.py; launches "
+              f"{launches}", flush=True)
+        del s_cur, o_cur
+
+        # one step against train_step; twice from one state; f16
+        ref_s = train_step(big, init_adam_state(big.params()), cam, target,
+                           **kw)
+        ref_p = ref_s.scene.params()
+        ref_m, ref_loss = ref_s.opt_state.m, float(ref_s.metrics["loss"])
+        del ref_s
+        g1 = gs_train_step(shard, opt0, cam, target, mesh,
+                           **{**kw, "settings": exact})
+        g2 = gs_train_step(shard, opt0, cam, target, mesh,
+                           **{**kw, "settings": exact})
+        repeat = all(torch.equal(g1.scene.params()[k], g2.scene.params()[k])
+                     for k in ref_p) and torch.equal(g1.opt_state.m,
+                                                     g2.opt_state.m)
+        del g2
+        err = {k: float((g1.scene.params()[k] - ref_p[k]).abs().max())
+               for k in ref_p}
+        over = {k: float(((g1.scene.params()[k] - ref_p[k]).abs()
+                          - (2e-6 + 2e-4 * ref_p[k].abs())).max())
+                for k in ref_p}
+        same = all(torch.equal(g1.scene.params()[k], ref_p[k])
+                   for k in ref_p) and torch.equal(g1.opt_state.m, ref_m)
+        del g1
+        g16 = gs_train_step(shard, opt0, cam, target, mesh, **kw)
+        loss16 = float(g16.metrics["loss"])
+        del g16
+        print(f"[gs] one f32 gs step vs train_step: max abs err {err}; "
+              f"bit-identical (params and moments) {same}; two runs from "
+              f"one state bit-identical {repeat}; f16 step loss {loss16:.6f}"
+              f" vs {ref_loss:.6f} (rel {abs(loss16 - ref_loss) / ref_loss:.2e})",
+              flush=True)
+        check(all(v <= 0 for v in over.values()),
+              f"gs step differs from train_step beyond rtol 2e-4 / atol "
+              f"2e-6: {err}")
+        check(repeat, "two gs steps from one state differ")
+        check(abs(loss16 - ref_loss) <= 2e-3 * abs(ref_loss),
+              f"f16 gs step loss {loss16} vs {ref_loss}")
+        del ref_p, ref_m
+        torch.cuda.empty_cache()
+
+        mesh2 = make_mesh(shape=(1, 1))
+        check(mesh2.dp_group is not None and mesh2.band_size == 1,
+              f"make_mesh(shape=(1, 1)): {mesh2}")
+        g2d = gs_train_step(shard, opt0, [cam], target[None], mesh2, **kw)
+        loss2d = float(g2d.metrics["loss"])
+        check(math.isfinite(loss2d) and
+              bool(torch.isfinite(g2d.scene.means).all()), "gs 2D step")
+        print(f"[gs] gs_train_step on a 1x1 dp x band mesh (NCCL band and dp "
+              f"groups): loss {loss2d:.6f}", flush=True)
+        del g2d
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "frame_ms": frame_ms,
+            "peak_gb": peak_gb, "syncs": syncs, "adapt": adapt,
+            "render_err": r_err, "render_bit_identical": r_same,
+            "f16_max": f16_max, "f16_mean": f16_mean, "step_err": err,
+            "step_bit_identical": same, "band": band}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
     import torch
@@ -2690,6 +2984,7 @@ def main(argv: list[str] | None = None) -> int:
     # --- 6b. the serial-band renderer at DCI 8K; 6c. data parallelism ---
     banded_res = banded_phase(dev, big, s1m)
     dp_res = dp_phase(dev, big, s1m)
+    gs_res = gs_phase(dev, big, s1m)
     del big
     torch.cuda.empty_cache()
 
@@ -2795,7 +3090,8 @@ def main(argv: list[str] | None = None) -> int:
         # launches: the training path's 20 steps; launches_densify: the
         # densify run's 4 steps and 2 events; launches_banded: 6
         # render_banded frames at 8K; launches_dp: 3 dp steps of 2 views;
-        # launches_cli_dp: the train --shard dp command's 30 iterations
+        # launches_gs: 3 gs_train_steps on one rank; launches_cli_dp: the
+        # train --shard dp command's 30 iterations
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": train_launches.get(name, dlaunch[name]),
@@ -2804,6 +3100,7 @@ def main(argv: list[str] | None = None) -> int:
                 "library_ms": lib_ms, "launches_densify": dlaunch[name],
                 "launches_banded": banded_res["launches"].get(name, 0),
                 "launches_dp": dp_res["launches"].get(name, 0),
+                "launches_gs": gs_res["launches"].get(name, 0),
                 "launches_cli_dp": cli_dp_launches[name],
                 **extra}
 
@@ -2864,7 +3161,8 @@ def main(argv: list[str] | None = None) -> int:
               None, sums_rel_err=loss_bench["sums_rel"],
               device_ms=loss_bench["device_ms"],
               launch=loss_bench["launch"],
-              before=loss_bench.get("before"), step_1m=loss_reading(loss1m)),
+              before=loss_bench.get("before"), step_1m=loss_reading(loss1m),
+              band=gs_res["band"]),
         # at the training step's inputs; the 1M sh3 / 1920x1080 step's
         # beside it
         entry("rasterize_tiles_backward",

@@ -19,7 +19,7 @@ from webdgs_tpu.ops.projection import project_gaussians as jproject
 from webdgs_tpu_torch.ops import binning as tbin
 from webdgs_tpu_torch.ops.expand import NWORDS, expand_fields
 
-from tests.test_torch_cuda import EXPAND_CASES, crafted_expand_case
+from tests.torch_cases import EXPAND_CASES, crafted_expand_case
 from tests.torch_parity import (aux_to_torch, attrs_to_torch, both_cameras,
                                 both_scenes, jax_settings, np_,
                                 numpy_scene, torch_settings)

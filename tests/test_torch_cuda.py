@@ -22,6 +22,12 @@ from webdgs_tpu_torch.ops.expand import (NWORDS, expand_fields,
 from webdgs_tpu_torch.ops.projection import project_gaussians
 from webdgs_tpu_torch.render.renderer import render
 
+# tests/ is on the path (pytest's rootdir-less import mode); a machine may
+# also have an unrelated top-level package named "tests"
+from torch_cases import (BAND_FRAME, BAND_SPLITS, EXPAND_CASES,
+                         aligned_entries, band_loss_frame,
+                         crafted_expand_case, split_bands)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -62,53 +68,6 @@ def test_expand_kernel_matches_plain(cuda, n, e_cap, seed):
     want = expand_fields_plain(words, counts, e_cap)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-
-
-# crafted expansion inputs (shared with tests/test_torch_binning.py, which
-# holds them against JAX).  The kernel gives each CTA a span of 1,024 slots
-# and stages the span's owner window of the cumsum when it holds at most
-# 4,096 Gaussians; "zero_run" exceeds that window (its global-search
-# route), "long_owner" spans several CTA spans with one owner.
-EXPAND_CASES = ("zero_run", "long_owner", "total_is_cap", "all_zero",
-                "single", "trailing_zeros", "odd_cap")
-
-
-def crafted_expand_case(case: str, seed: int):
-    """Numpy inputs of expand_fields: (words (5, N) int32, counts (N,)
-    int32, e_cap)."""
-    rng = np.random.default_rng(seed)
-
-    def some(n, lo=0, hi=9):
-        return rng.integers(lo, hi, n)
-    if case == "zero_run":  # 5,000 zero-count Gaussians between owners
-        counts = np.concatenate([some(400, 1), np.zeros(5000, np.int64),
-                                 some(400, 1)])
-        e_cap = int(counts.sum()) + 700
-    elif case == "long_owner":  # one Gaussian of 5,000 entries
-        counts = np.concatenate([some(60), [5000], some(60)])
-        e_cap = int(counts.sum()) + 300
-    elif case == "total_is_cap":
-        counts = some(1500)
-        e_cap = int(counts.sum())
-    elif case == "all_zero":
-        counts = np.zeros(300, np.int64)
-        e_cap = 1024
-    elif case == "single":  # N = 1
-        counts = np.array([7])
-        e_cap = 13
-    elif case == "trailing_zeros":
-        counts = np.concatenate([some(700), np.zeros(3000, np.int64)])
-        e_cap = int(counts.sum()) + 2100
-    elif case == "odd_cap":  # rows of the output not 16-byte aligned
-        counts = some(1200)
-        e_cap = int(counts.sum()) + 1023
-        assert e_cap % 4 != 0
-    else:
-        raise ValueError(case)
-    counts = counts.astype(np.int32)
-    words = rng.integers(-2**31, 2**31 - 1, (NWORDS, counts.shape[0]),
-                         dtype=np.int64).astype(np.int32)
-    return words, counts, e_cap
 
 
 @pytest.mark.parametrize("case", EXPAND_CASES)
@@ -310,6 +269,102 @@ def test_tile_loss_runs_without_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     dp, _ = ttl.tile_loss_gradient_plain(out, target, w, h, ntx, nty, cfg, s)
     assert float((dk - dp).abs().max()) <= 1e-5
+
+
+def _band_frames(cuda, frame):
+    """(tiles, target, w, h, ntx, nty, settings) on the card: the 70x52
+    band frame of tests/test_tile_loss.py:132, or a 333x250 frame of
+    16 tile rows."""
+    if frame == "70x52":
+        s = RenderSettings()
+        w, h = BAND_FRAME
+        out, target = band_loss_frame(17, w, h, s.tile_w, s.tile_h)
+        ntx, nty = -(-w // s.tile_w), -(-h // s.tile_h)
+        return (torch.tensor(out).to(cuda), torch.tensor(target).to(cuda),
+                w, h, ntx, nty, s)
+    out, target, ntx, nty, s = _loss_tiles(cuda, 333, 250, 32, 16, 16)
+    return out, target, 333, 250, ntx, nty, s
+
+
+@pytest.mark.parametrize("frame", ["70x52", "333x250"])
+@pytest.mark.parametrize("n_bands", (1,) + BAND_SPLITS)
+def test_band_tile_loss_kernel_matches_plain(cuda, frame, n_bands):
+    """The band form against its plain version, band by band (garbage
+    halos at the frame's borders); the bands reassemble the full-frame
+    kernel's dpix bit for bit, and tiles wholly below the frame (the
+    padding of 3 bands) are zero."""
+    from webdgs_tpu_torch.ops import tile_loss as ttl
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    out, target, w, h, ntx, nty, s = _band_frames(cuda, frame)
+    cfg = LossConfig()
+    full_d, full_s = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg,
+                                         s)
+    parts, sums = [], []
+    for row_base, rows, band, top, bot in split_bands(
+            out.cpu().numpy(), ntx, nty, n_bands, s.tile_w, s.tile_h, 5):
+        args = [torch.tensor(x).to(cuda) for x in (band, top, bot)] + [
+            target, row_base, w, h, ntx, rows, cfg, s]
+        launches = ttl.tile_loss_tiles.kernel_launches
+        dk, sk = ttl.band_tile_loss_gradient(*args)
+        torch.cuda.synchronize()
+        assert ttl.tile_loss_tiles.kernel_launches == launches + 1
+        dp, sp = ttl.band_tile_loss_gradient_plain(*args)
+        assert float((dk - dp).abs().max()) <= 1e-5
+        torch.testing.assert_close(sk.sum(0), sp.sum(0), rtol=1e-5, atol=0)
+        below = torch.arange(rows, device=cuda).repeat_interleave(ntx) \
+            + row_base >= -(-h // s.tile_h)
+        assert not dk[below].any() and not sk[below].any()
+        parts.append(dk)
+        sums.append(sk)
+    assert torch.equal(torch.cat(parts)[:ntx * nty], full_d)
+    torch.testing.assert_close(torch.cat(sums).sum(0), full_s.sum(0),
+                               rtol=1e-6, atol=0)
+
+
+def test_band_tile_loss_kernel_one_band_is_full_frame(cuda):
+    """row_base 0 with the frame's own boundary slices as halos (a ring of
+    one band) is the full-frame kernel, bit for bit; so is a band built
+    from a padded grid, whose extra rows are zero."""
+    from webdgs_tpu_torch.ops import tile_loss as ttl
+    from webdgs_tpu_torch.ops.loss import LossConfig
+    out, target, w, h, ntx, nty, s = _band_frames(cuda, "333x250")
+    cfg = LossConfig()
+    full_d, full_s = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg,
+                                         s)
+    bot, top = ttl.halo_slices(out, ntx, s)
+    dk, sk = ttl.band_tile_loss_gradient(out, bot, top, target, 0, w, h,
+                                         ntx, nty, cfg, s)
+    assert torch.equal(dk, full_d) and torch.equal(sk, full_s)
+    padded = torch.cat([out, torch.rand_like(out[:2 * ntx])])
+    dk, sk = ttl.band_tile_loss_gradient(padded, bot, top, target, 0, w, h,
+                                         ntx, nty + 2, cfg, s)
+    assert torch.equal(dk[:ntx * nty], full_d)
+    assert not dk[ntx * nty:].any() and not sk[ntx * nty:].any()
+
+
+@pytest.mark.parametrize("n,w,h,shift", [(3000, 320, 240, 0.0),
+                                         (20_000, 96, 80, -3.0)])
+def test_aligned_zero_rows_are_no_ops(cuda, n, w, h, shift):
+    """The forward and backward kernels on the chunk-aligned layout of the
+    Gaussian-sharded paths (each tile's entries followed by all-zero rows
+    to a chunk boundary, spare chunks at the end): all 8 forward channels,
+    n_contrib included, equal the sorted layout's; the real entries'
+    cotangents equal theirs and the zero rows' are 0."""
+    s, bins, a16, _, ntx, nty = _train_frame(cuda, n, w, h, seed=17,
+                                             opacity_shift=shift)
+    rows, offsets, src, valid = aligned_entries(a16, bins.tile_offsets,
+                                                s.chunk, slack=2)
+    out = tras.rasterize_tiles(a16, bins.tile_offsets, ntx, nty, s)
+    out_a = tras.rasterize_tiles(rows, offsets, ntx, nty, s)
+    assert torch.equal(out_a, out)
+    gpix = torch.randn((ntx * nty, tras.NUM_GPIX, s.tile_px),
+                       generator=torch.Generator(cuda).manual_seed(3),
+                       device=cuda)
+    d = tras.rasterize_tiles_backward(a16, bins.tile_offsets, gpix, ntx, nty,
+                                      s)
+    d_a = tras.rasterize_tiles_backward(rows, offsets, gpix, ntx, nty, s)
+    assert torch.equal(d_a[:, valid], d[:, src[valid]])
+    assert not d_a[:, ~valid].any()
 
 
 @pytest.mark.parametrize("n,w,h,shift,case", [

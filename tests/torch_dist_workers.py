@@ -8,6 +8,7 @@ imports it afresh, and the JAX side of a parity test runs in the parent.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -21,12 +22,15 @@ from webdgs_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from webdgs_tpu_torch.ops.adam import (AdamHyperparameters, adam_step,
                                        init_adam_state)
 from webdgs_tpu_torch.ops.loss import LossConfig
-from webdgs_tpu_torch.parallel.sharding import (dp_train_step, make_mesh,
+from webdgs_tpu_torch.parallel.sharding import (dp_train_step,
+                                                gaussian_shard, gs_train_step,
+                                                make_mesh,
+                                                render_gaussian_sharded,
                                                 render_tile_sharded)
 from webdgs_tpu_torch.render.renderer import render
 from webdgs_tpu_torch.train.config import (DensifyPruneConfig,
                                            DensifySchedule, TrainerConfig)
-from webdgs_tpu_torch.train.step import compute_param_grads
+from webdgs_tpu_torch.train.step import compute_param_grads, train_step
 from webdgs_tpu_torch.train.trainer import Trainer
 
 SETTINGS = RenderSettings(chunk=128)
@@ -157,17 +161,136 @@ def case_trainer_densify(mesh, inp, out_dir):
             **_params("p_", tr.scene.params())}
 
 
+# the exact float32 entry exchange (the f16 default is the f16-class cases)
+SETTINGS_EXACT = dataclasses.replace(SETTINGS, exchange_f16=False)
+
+
+def _gs_renders(mesh, params, w, h, settings, send_capacity=None,
+                prefix=""):
+    """The Gaussian-sharded frame of a scene (this rank's shard of it),
+    gathered and as this rank's band, and its drop count."""
+    shard = gaussian_shard(_scene(params), mesh)
+    cam = default_camera(w, h, position=(0.0, 0.0, -5.0), device="cpu")
+    img, dropped = render_gaussian_sharded(shard, cam, w, h, mesh, settings,
+                                           send_capacity=send_capacity)
+    band, _ = render_gaussian_sharded(shard, cam, w, h, mesh, settings,
+                                      send_capacity=send_capacity,
+                                      gather=False)
+    return {f"{prefix}image": _np(img), f"{prefix}band": _np(band),
+            f"{prefix}dropped": _np(dropped)}
+
+
+def case_gs_render(mesh, inp, out_dir):
+    """render_gaussian_sharded with the f32 and the f16 exchange, the
+    port's single-device render of the same scene, and, given
+    ``drop_params``, the concentrated scene at 16x16 tiles with a one-chunk
+    send budget."""
+    w, h = inp["w"], inp["h"]
+    cam = default_camera(w, h, position=(0.0, 0.0, -5.0), device="cpu")
+    with torch.no_grad():
+        single = render(_scene(inp["params"]), cam, w, h, SETTINGS).image
+    out = {"single": _np(single),
+           **_gs_renders(mesh, inp["params"], w, h, SETTINGS_EXACT, None,
+                         "f32_"),
+           **_gs_renders(mesh, inp["params"], w, h, SETTINGS, None, "f16_")}
+    if "drop_params" in inp:
+        s16 = dataclasses.replace(SETTINGS, tile_w=16, tile_h=16)
+        out.update(_gs_renders(mesh, inp["drop_params"], w, h, s16,
+                               s16.chunk, "drop_"))
+    return out
+
+
+def _gs_step(mesh, params, cams, targets, w, h, settings, prefix):
+    """One gs_train_step from the scene's shard and fresh moments: this
+    rank's updated shard, moments and metrics."""
+    scene = _scene(params)
+    new = gs_train_step(
+        gaussian_shard(scene, mesh),
+        gaussian_shard(init_adam_state(scene.params()), mesh), cams,
+        targets, mesh, img_w=w, img_h=h, settings=settings)
+    return {**_params(f"{prefix}p_", new.scene.params()),
+            f"{prefix}m": _np(new.opt_state.m),
+            f"{prefix}v": _np(new.opt_state.v),
+            **{f"{prefix}metric_{k}": _np(v)
+               for k, v in new.metrics.items()}}
+
+
+def case_gs_step(mesh, inp, out_dir):
+    """gs_train_step on a 1D band mesh: f32 exchange twice (the second a
+    determinism check), the f16 exchange, and the image-space branch on a
+    frame under 5 px tall; the port's single-device train_step of the
+    f32 case beside them."""
+    w, h = inp["w"], inp["h"]
+    cam = default_camera(w, h, position=(0.0, 0.0, -5.0), device="cpu")
+    target = torch.tensor(inp["target"])
+    out = {}
+    for prefix, st in (("f32_", SETTINGS_EXACT), ("again_", SETTINGS_EXACT),
+                       ("f16_", SETTINGS)):
+        out.update(_gs_step(mesh, inp["params"], cam, target, w, h, st,
+                            prefix))
+    scene = _scene(inp["params"])
+    ref = train_step(scene, init_adam_state(scene.params()), cam, target,
+                     img_w=w, img_h=h, settings=SETTINGS_EXACT)
+    out.update(_params("single_p_", ref.scene.params()))
+    out["single_m"] = _np(ref.opt_state.m)
+    sw, sh = inp["small_size"]
+    cam_s = default_camera(sw, sh, position=(0.0, 0.0, -5.0), device="cpu")
+    out.update(_gs_step(mesh, inp["params"], cam_s,
+                        torch.tensor(inp["small_target"]), sw, sh,
+                        SETTINGS_EXACT, "small_"))
+    return out
+
+
+def case_gs_mesh2d(mesh, inp, out_dir):
+    """On a (V, B) dp x band mesh: one gs_train_step over V views; and over
+    all the ranks as one band group (the 1D view of the same processes)
+    the f32 Gaussian-sharded render of ``render_params`` and one
+    gs_train_step at ``render_size`` beside the single-device step."""
+    w, h = inp["w"], inp["h"]
+    cams = [default_camera(w, h, position=tuple(p), device="cpu")
+            for p in inp["positions"]]
+    out = _gs_step(mesh, inp["params"], cams, torch.tensor(inp["images"]),
+                   w, h, SETTINGS_EXACT, "")
+    flat = dataclasses.replace(mesh, shape=None, band_group=mesh.group,
+                               dp_group=None)
+    rw, rh = inp["render_size"]
+    cam = default_camera(rw, rh, position=(0.0, 0.0, -5.0), device="cpu")
+    with torch.no_grad():
+        single = render(_scene(inp["render_params"]), cam, rw, rh,
+                        SETTINGS).image
+    out.update(_gs_renders(flat, inp["render_params"], rw, rh,
+                           SETTINGS_EXACT, None, "render_"))
+    out["render_single"] = _np(single)
+    # a step over the 4 bands (the last one padding): a ring of distinct
+    # neighbours, against the port's single-device step
+    target = torch.tensor(inp["images"][0][:rh])
+    out.update(_gs_step(flat, inp["params"], cam, target, rw, rh,
+                        SETTINGS_EXACT, "flat_"))
+    scene = _scene(inp["params"])
+    ref = train_step(scene, init_adam_state(scene.params()), cam, target,
+                     img_w=rw, img_h=rh, settings=SETTINGS_EXACT)
+    out.update(_params("flat_single_p_", ref.scene.params()))
+    out["band_rank"] = np.asarray(mesh.band_rank)
+    out["dp_rank"] = np.asarray(mesh.dp_rank)
+    return out
+
+
 CASES = {"tile_sharded": case_tile_sharded, "dp_step": case_dp_step,
-         "trainer": case_trainer, "trainer_densify": case_trainer_densify}
+         "trainer": case_trainer, "trainer_densify": case_trainer_densify,
+         "gs_render": case_gs_render, "gs_step": case_gs_step,
+         "gs_mesh2d": case_gs_mesh2d}
 
 
 def rank_main(rank: int, world: int, store: str, case: str, out_dir: str,
               inp: dict) -> None:
-    """One rank: join the gloo group through the ``file://`` store, run
-    ``case`` and save its arrays."""
+    """One rank: join the gloo group through the ``file://`` store (as a
+    dp x band mesh when ``inp`` has ``mesh_shape``), run ``case`` and save
+    its arrays."""
     torch.set_num_threads(1)
+    shape = inp.get("mesh_shape")
     mesh = make_mesh("cpu", init_method="file://" + store, rank=rank,
-                     world_size=world, timeout_s=GROUP_TIMEOUT_S)
+                     world_size=world, timeout_s=GROUP_TIMEOUT_S,
+                     shape=None if shape is None else tuple(shape))
     try:
         out = CASES[case](mesh, inp, out_dir)
         np.savez(os.path.join(out_dir, f"{case}_r{rank}.npz"), **out)

@@ -61,6 +61,11 @@ SIGNATURES = {
     # ldssim, c1, c2, bg0, bg1, bg2, dpix, sums, stream
     "webdgs_tile_loss": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                          _F, _F, _F, _F, _P, _P, _P),
+    # out, halo_top, halo_bot, target, row_base, rows, ntx, tile_w, tile_h,
+    # img_w, img_h, l1, l2, ldssim, c1, c2, bg0, bg1, bg2, dpix, sums,
+    # stream
+    "webdgs_tile_loss_band": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P),
     # tile_w, tile_h, out (5 ints: threads, dynamic shared bytes, CTAs per
     # SM, registers, output rows per thread)
     "webdgs_tile_loss_occupancy": (_I, _I, _P),

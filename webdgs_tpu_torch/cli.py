@@ -127,9 +127,12 @@ def _build_trainer(args):
 
     mesh = None
     if args.shard == "gs":
-        raise SystemExit("--shard gs (Gaussian-sharded training) is a later "
-                         "slice of the port (ROADMAP Queue 1 item 5); use "
-                         "--shard dp or none")
+        raise SystemExit("--shard gs (Gaussian-sharded training) needs "
+                         "the Gaussian-sharded trainer (GsTrainer, "
+                         "rebalance_shards, gs_densify_event), a later "
+                         "slice of the port; the step itself is "
+                         "parallel/sharding.py:gs_train_step. Use --shard "
+                         "dp or none")
     if args.shard == "dp":
         from webdgs_tpu_torch.parallel.sharding import make_mesh
         mesh = make_mesh(args.device, axis_name="dp")

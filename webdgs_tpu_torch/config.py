@@ -2,9 +2,8 @@
 
 Only the semantic fields are carried over.  The TPU execution knobs of the
 reference (``tiles_per_step``, ``dma_group``, ``matmul_precision``,
-``grad_reduce_threshold``, ``expand_kernel``, ``exchange_f16``) have no
-counterpart: on a CUDA tensor the port always runs its kernels, in
-float32.  The gradient path always takes the exact-f32 segment sum
+``grad_reduce_threshold``, ``expand_kernel``) have no counterpart: on a
+CUDA tensor the port always runs its kernels, in float32.  The gradient path always takes the exact-f32 segment sum
 (``ops/segsum.py``), which is the reference's default
 (``grad_rows_f16=False``, ``segsum_kernel=True``) without its bf16 hi/lo
 split; the f16 row tier has no counterpart.
@@ -45,6 +44,10 @@ class RenderSettings:
     alpha_max: float = 0.99
     # exact per-(gaussian, tile) alpha cull in binning (image-identical)
     tile_cull: bool = True
+    # the Gaussian-sharded paths send entry rows between ranks as float16,
+    # centers relative to the entry's tile (parallel/sharding.py); the
+    # cotangents go back in float32 either way
+    exchange_f16: bool = True
 
     @property
     def tile_px(self) -> int:

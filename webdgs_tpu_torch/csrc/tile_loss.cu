@@ -13,6 +13,19 @@
 // the planar (T, 8, P) buffer.  The edge clamp clamp(x, 0, img_w-1),
 // clamp(y, 0, img_h-1) is index arithmetic.
 //
+// Band form (the Gaussian-sharded step): the buffer holds `rows` tile rows
+// of the frame from global tile row `row_base`; the frame rows just above
+// and below the band come from two (ntx, 8, 2 * tile_w) boundary slices,
+// halo_top (the band above's last two pixel rows) and halo_bot (the band
+// below's first two).  Clamps, the target rows and the valid mask use
+// global rows.  With tile_h >= 2 a staged row lies at most one tile row
+// away, so its source is the tile row above (halo_top when that is above
+// the band), the tile's own row, or the row below (halo_bot past the band);
+// a source further away is never read.  A tile wholly below the frame (a
+// padding row of the last bands) writes zero dpix and sums and reads
+// nothing.  The full frame is the case row_base = 0, rows = nty, whose
+// clamps never reach a halo row.
+//
 // Per pixel and channel: 5x5 box means, SSIM, dssim = (1 - ssim)/2 and
 //   grad = l1 * sign(d) + l2 * d + ld * dssim * d,   d = pred - target,
 // with sign(0) = 0 (untouched background pixels have d = 0 exactly).
@@ -116,11 +129,13 @@ __device__ __forceinline__ RowSums row_sums(const float* a, const float* b) {
 
 __global__ void __launch_bounds__(kMaxThreads, kMinCtas)
     tile_loss_kernel(const float* __restrict__ out,
-                     const float* __restrict__ target, int ntx, int tile_w,
-                     int tile_h, int img_w, int img_h, float l1, float l2,
-                     float ld, float c1, float c2, float bg0, float bg1,
-                     float bg2, float* __restrict__ dpix,
-                     float* __restrict__ sums) {
+                     const float* __restrict__ halo_top,
+                     const float* __restrict__ halo_bot,
+                     const float* __restrict__ target, int row_base,
+                     int rows, int ntx, int tile_w, int tile_h, int img_w,
+                     int img_h, float l1, float l2, float ld, float c1,
+                     float c2, float bg0, float bg1, float bg2,
+                     float* __restrict__ dpix, float* __restrict__ sums) {
   extern __shared__ float smem[];
   const int hh = tile_h + 2 * kHalf;
   const int ww = tile_w + 2 * kHalf;
@@ -131,10 +146,18 @@ __global__ void __launch_bounds__(kMaxThreads, kMinCtas)
 
   const int t = blockIdx.x;
   const int npix = tile_w * tile_h;
-  const int tcy = t / ntx, tcx = t - tcy * ntx;
-  const int tx0 = tcx * tile_w, ty0 = tcy * tile_h;
+  const int tcy = t / ntx, tcx = t - tcy * ntx;  // tcy: row in the band
+  const int tx0 = tcx * tile_w, ty0 = (row_base + tcy) * tile_h;  // global
   const float bg[3] = {bg0, bg1, bg2};
   const size_t tile_stride = (size_t)kNumOut * npix;
+  const int halo_px = kHalf * tile_w;  // a boundary slice's pixels per tile
+
+  if (ty0 >= img_h) {  // a padding tile: zeros, nothing read
+    float* o = dpix + (size_t)t * tile_stride;
+    for (int i = threadIdx.x; i < kNumOut * npix; i += blockDim.x) o[i] = 0.f;
+    if (threadIdx.x < kNumSums) sums[(size_t)t * kNumSums + threadIdx.x] = 0.f;
+    return;
+  }
 
   // stage the halo: a thread takes the elements tid, tid + blockDim.x, ...
   // with (ly, lx) advanced by blockDim.x elements per step, and issues the
@@ -152,15 +175,30 @@ __global__ void __launch_bounds__(kMaxThreads, kMinCtas)
           int dty, py, dtx, px;
           locate(gy, ty0, tile_h, dty, py);
           locate(gx, tx0, tile_w, dtx, px);
-          const float* o = out + (size_t)((tcy + dty) * ntx + tcx + dtx) *
-                                     tile_stride + py * tile_w + px;
+          // the staged row's source: a tile of the band, or a boundary
+          // slice of the band above (row -1) or below (row `rows`)
+          const int src_row = tcy + dty;
+          const size_t col = (size_t)(tcx + dtx);
+          const float* o = nullptr;
+          int cs = npix;  // channel stride of the source
+          if (src_row >= 0 && src_row < rows) {
+            o = out + ((size_t)src_row * ntx + col) * tile_stride +
+                py * tile_w + px;
+          } else if (src_row == -1) {
+            o = halo_top + col * kNumOut * halo_px +
+                (py - (tile_h - kHalf)) * tile_w + px;
+            cs = halo_px;
+          } else if (src_row == rows) {
+            o = halo_bot + col * kNumOut * halo_px + py * tile_w + px;
+            cs = halo_px;
+          }
           const float* tg = target + ((size_t)gy * img_w + gx) * 3;
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
-            vo[k][c] = o[c * npix];
+            vo[k][c] = o != nullptr ? o[c * cs] : 0.f;
             vt[k][c] = tg[c];
           }
-          vo[k][3] = o[kOutT * npix];
+          vo[k][3] = o != nullptr ? o[kOutT * cs] : 0.f;
         }
         lx += step_x;
         ly += step_y;
@@ -306,14 +344,20 @@ bool valid_tile(int tile_w, int tile_h) {
 
 }  // namespace
 
-extern "C" int webdgs_tile_loss(const void* out, const void* target,
-                                int n_tiles, int ntx, int tile_w, int tile_h,
-                                int img_w, int img_h, float l1, float l2,
-                                float ld, float c1, float c2, float bg0,
-                                float bg1, float bg2, void* dpix, void* sums,
-                                void* stream) {
-  if (n_tiles <= 0 || ntx <= 0 || !valid_tile(tile_w, tile_h) ||
-      img_w < kWin || img_h < kWin) {
+// One band of `rows` tile rows from global tile row row_base; halo_top
+// and halo_bot are (ntx, 8, 2 * tile_w), read only where a clamped frame
+// row lies just above or below the band.
+extern "C" int webdgs_tile_loss_band(const void* out, const void* halo_top,
+                                     const void* halo_bot, const void* target,
+                                     int row_base, int rows, int ntx,
+                                     int tile_w, int tile_h, int img_w,
+                                     int img_h, float l1, float l2, float ld,
+                                     float c1, float c2, float bg0, float bg1,
+                                     float bg2, void* dpix, void* sums,
+                                     void* stream) {
+  if (rows <= 0 || ntx <= 0 || row_base < 0 ||
+      !valid_tile(tile_w, tile_h) || img_w < kWin || img_h < kWin ||
+      (long long)rows * ntx > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   int threads;
@@ -321,11 +365,28 @@ extern "C" int webdgs_tile_loss(const void* out, const void* target,
   launch_shape(tile_w, tile_h, &threads, &smem);
   const cudaError_t err = allow_smem(smem);
   if (err != cudaSuccess) return (int)err;
-  tile_loss_kernel<<<n_tiles, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(out), static_cast<const float*>(target), ntx,
-      tile_w, tile_h, img_w, img_h, l1, l2, ld, c1, c2, bg0, bg1, bg2,
-      static_cast<float*>(dpix), static_cast<float*>(sums));
+  tile_loss_kernel<<<rows * ntx, threads, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(out), static_cast<const float*>(halo_top),
+      static_cast<const float*>(halo_bot), static_cast<const float*>(target),
+      row_base, rows, ntx, tile_w, tile_h, img_w, img_h, l1, l2, ld, c1, c2,
+      bg0, bg1, bg2, static_cast<float*>(dpix), static_cast<float*>(sums));
   return (int)cudaGetLastError();
+}
+
+// The whole frame: n_tiles = ntx * nty tiles from row 0, the band form
+// whose clamps never reach its boundary slices.
+extern "C" int webdgs_tile_loss(const void* out, const void* target,
+                                int n_tiles, int ntx, int tile_w, int tile_h,
+                                int img_w, int img_h, float l1, float l2,
+                                float ld, float c1, float c2, float bg0,
+                                float bg1, float bg2, void* dpix, void* sums,
+                                void* stream) {
+  if (n_tiles <= 0 || ntx <= 0 || n_tiles % ntx != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return webdgs_tile_loss_band(out, out, out, target, 0, n_tiles / ntx, ntx,
+                               tile_w, tile_h, img_w, img_h, l1, l2, ld, c1,
+                               c2, bg0, bg1, bg2, dpix, sums, stream);
 }
 
 // The launch shape for a tile: out = {threads, dynamic shared bytes, CTAs

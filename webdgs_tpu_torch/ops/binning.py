@@ -302,6 +302,45 @@ def expand_entries(aux: SplatAux, ntx: int, e_cap: int,
     return key, g, counts, total_expansion, keep, demand
 
 
+def aligned_tile_layout(tile_counts: torch.Tensor, chunk: int):
+    """Chunk-aligned per-tile ranges from exact per-tile counts (T,) i32:
+    (tile_offsets (T+1,), aligned_off (T,), unaligned_off (T,)), all i32
+    (webdgs_tpu/ops/binning.py:395).  The Gaussian-sharded paths
+    (parallel/sharding.py) lay the received entries out in these ranges,
+    each tile's entries followed by all-zero rows up to the next chunk
+    boundary."""
+    aligned_counts = (tile_counts + (chunk - 1)) // chunk * chunk
+    unaligned_off = torch.cumsum(tile_counts, 0,
+                                 dtype=torch.int32) - tile_counts
+    aligned_end = torch.cumsum(aligned_counts, 0, dtype=torch.int32)
+    tile_offsets = torch.cat([aligned_end.new_zeros(1), aligned_end])
+    return tile_offsets, aligned_end - aligned_counts, unaligned_off
+
+
+def realign_sorted(tile_offsets: torch.Tensor, aligned_off: torch.Tensor,
+                   unaligned_off: torch.Tensor, tile_counts: torch.Tensor,
+                   a_cap: int, chunk: int, total_tiles: int, src_cap: int):
+    """Counting-sort placement (webdgs_tpu/ops/binning.py:413): for each
+    slot ``k`` of the aligned layout, the index into the tile-sorted entry
+    array it takes (i32, clamped to [0, src_cap)) and whether it holds an
+    entry (bool).  Pure index arithmetic on the device; ``a_cap`` is a
+    multiple of ``chunk``."""
+    dev = tile_counts.device
+    chunk_starts = torch.arange(a_cap // chunk, dtype=torch.int32,
+                                device=dev) * chunk
+    chunk_tile = torch.clamp(
+        torch.searchsorted(tile_offsets[1:], chunk_starts, right=True,
+                           out_int32=True), 0, total_tiles - 1)
+    # an int repeat count: a tensor of counts would read the device back
+    k_tile = torch.repeat_interleave(chunk_tile, chunk).to(torch.int64)
+    k_idx = torch.arange(a_cap, dtype=torch.int32, device=dev)
+    within = k_idx - aligned_off[k_tile]
+    out_valid = within < tile_counts[k_tile]
+    src = torch.clamp(k_idx - (aligned_off - unaligned_off)[k_tile], 0,
+                      src_cap - 1)
+    return src, out_valid
+
+
 def bin_splats(aux: SplatAux, img_w: int, img_h: int,
                settings: RenderSettings,
                capacity: int | None = None,

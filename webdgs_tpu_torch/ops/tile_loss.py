@@ -17,6 +17,12 @@ the whole padded frame; on a CUDA tensor it launches the kernel or raises.
 The 5x5 window samples are edge-replicated (``clamp`` to the frame), so
 pixels of the tile-grid padding never feed a window; they get zero
 gradient and count nowhere.
+
+``band_tile_loss_gradient`` is the same kernel on one band of tile rows
+(the Gaussian-sharded step, ``parallel/sharding.py``): global row clamps
+from the band's first tile row, and the rows just outside the band from
+two boundary slices of the neighbouring bands (:func:`halo_slices`).  The
+whole frame is its one-band case, and one launch either way.
 """
 
 from __future__ import annotations
@@ -68,14 +74,34 @@ def _check_inputs(out, target, img_w, img_h, ntx, nty, settings):
             raise ValueError(f"{name} must be contiguous")
     if out.device != target.device:
         raise ValueError("out and target are on different devices")
-    if ntx * settings.tile_w < img_w or nty * settings.tile_h < img_h:
-        raise ValueError("the tile grid does not cover the frame")
+    if ntx * settings.tile_w < img_w:
+        raise ValueError("the tile grid does not cover the frame's width")
     if not supports_tile_loss(img_w, img_h, settings):
         raise ValueError(f"a {img_w}x{img_h} frame is smaller than the "
                          f"{WIN}x{WIN} window")
     if not 0 < settings.tile_px <= MAX_TILE_PX:
         raise ValueError(f"tile of {settings.tile_px} pixels: the kernel "
                          f"takes tiles of 1 to {MAX_TILE_PX} pixels")
+
+
+def _check_band(out, halo_top, halo_bot, target, row_base, img_w, img_h,
+                ntx, rows, settings):
+    _check_inputs(out, target, img_w, img_h, ntx, rows, settings)
+    if settings.tile_h < HALF:
+        raise ValueError(f"a band needs tiles of at least {HALF} rows, got "
+                         f"tile_h {settings.tile_h}")
+    if not isinstance(row_base, int) or row_base < 0:
+        raise ValueError(f"row_base must be a non-negative int, got "
+                         f"{row_base!r}")
+    for name, h in (("halo_top", halo_top), ("halo_bot", halo_bot)):
+        if tuple(h.shape) != (ntx, NUM_OUT, HALF * settings.tile_w):
+            raise ValueError(f"{name} must be ({ntx}, {NUM_OUT}, "
+                             f"{HALF * settings.tile_w}), got "
+                             f"{tuple(h.shape)}")
+        if h.dtype != torch.float32 or not h.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if h.device != out.device:
+            raise ValueError(f"{name} is on {h.device}, out on {out.device}")
 
 
 def _box(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -90,27 +116,54 @@ def _box(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return s
 
 
-def tile_loss_gradient_plain(out: torch.Tensor, target: torch.Tensor,
-                             img_w: int, img_h: int, ntx: int, nty: int,
-                             cfg: LossConfig, settings: RenderSettings):
-    """Plain torch version of the kernel: (dpix (T, NUM_OUT, P), per-tile
-    sums (T, NUM_SUMS))."""
+def halo_slices(out: torch.Tensor, ntx: int, settings: RenderSettings):
+    """The two (ntx, NUM_OUT, HALF*tw) boundary slices a neighbouring band
+    needs from this band's (rows*ntx, NUM_OUT, P) tiles: (bottom slice of
+    the LAST tile row, top slice of the FIRST tile row), contiguous."""
     th, tw = settings.tile_h, settings.tile_w
-    hp, wp = nty * th, ntx * tw
+    t4 = out.reshape(out.shape[0], NUM_OUT, th, tw)
+    bot, top = t4[-ntx:, :, -HALF:, :], t4[:ntx, :, :HALF, :]
+    return (bot.reshape(bot.shape[0], NUM_OUT, HALF * tw).contiguous(),
+            top.reshape(top.shape[0], NUM_OUT, HALF * tw).contiguous())
+
+
+def band_tile_loss_gradient_plain(out: torch.Tensor, halo_top: torch.Tensor,
+                                  halo_bot: torch.Tensor,
+                                  target: torch.Tensor, row_base: int,
+                                  img_w: int, img_h: int, ntx: int,
+                                  rows: int, cfg: LossConfig,
+                                  settings: RenderSettings):
+    """Plain torch version of the kernel, for one band of ``rows`` tile rows
+    from global tile row ``row_base``: (dpix (rows*ntx, NUM_OUT, P),
+    per-tile sums (rows*ntx, NUM_SUMS)).  The (rows*th+4, wp+4) halo of
+    the band is built from ``halo_top``, the band and ``halo_bot`` with the
+    global edge clamps; a clamped row with no source there (only in tiles
+    wholly below the frame) reads 0."""
+    th, tw = settings.tile_h, settings.tile_w
+    hp, wp = rows * th, ntx * tw
     dev = out.device
     bg = torch.tensor(settings.background, dtype=torch.float32, device=dev)
-    # planar tiles -> padded (hp, wp, c) image of the channels used
-    img = out.reshape(nty, ntx, NUM_OUT, th, tw).permute(0, 3, 1, 4, 2)
-    img = img.reshape(hp, wp, NUM_OUT)
-    pred_img = img[..., 0:3] + bg * img[..., OUT_T:OUT_T + 1]
 
-    # (hp+4, wp+4) halo of every pixel of the grid: edge-clamped samples
-    gy = torch.clamp(torch.arange(-HALF, hp + HALF, device=dev), 0,
+    def image(t, n):  # (n_rows*ntx, C, n*tw) tiles -> (n, wp, C) rows
+        t = t.reshape(-1, ntx, NUM_OUT, n, tw).permute(0, 3, 1, 4, 2)
+        return t.reshape(-1, wp, NUM_OUT)
+
+    ext = torch.cat([image(halo_top, HALF), image(out, th),
+                     image(halo_bot, HALF)])  # (hp+4, wp, NUM_OUT)
+    pred_ext = ext[..., 0:3] + bg * ext[..., OUT_T:OUT_T + 1]
+
+    # (hp+4, wp+4) halo of every pixel of the band: edge-clamped samples
+    # at global rows y0-2 .. y0+hp+1, found in ext at row gy - (y0 - 2)
+    y0 = row_base * th
+    gy = torch.clamp(torch.arange(y0 - HALF, y0 + hp + HALF, device=dev), 0,
                      img_h - 1)
+    src = gy - (y0 - HALF)
+    has_src = ((src >= 0) & (src < hp + 2 * HALF))[:, None, None]
     gx = torch.clamp(torch.arange(-HALF, wp + HALF, device=dev), 0,
                      img_w - 1)
-    p = pred_img[gy][:, gx]
-    q = target[gy][:, gx]
+    p = torch.where(has_src, pred_ext[src.clamp(0, hp + 2 * HALF - 1)][:, gx],
+                    0.0)
+    q = torch.where(has_src, target[gy][:, gx], 0.0)
     inv = 1.0 / (WIN * WIN)
     mu_x = _box(p, hp, wp) * inv
     mu_y = _box(q, hp, wp) * inv
@@ -126,7 +179,7 @@ def tile_loss_gradient_plain(out: torch.Tensor, target: torch.Tensor,
     diff = p[own] - q[own]
     grad = cfg.lambda_l1 * torch.sign(diff) + cfg.lambda_l2 * diff
     grad = grad + cfg.lambda_dssim * dssim * diff
-    valid = ((torch.arange(hp, device=dev) < img_h)[:, None]
+    valid = ((torch.arange(y0, y0 + hp, device=dev) < img_h)[:, None]
              & (torch.arange(wp, device=dev) < img_w)[None, :])
     valid = valid.to(torch.float32)[..., None]  # (hp, wp, 1)
     grad = grad * valid
@@ -134,45 +187,96 @@ def tile_loss_gradient_plain(out: torch.Tensor, target: torch.Tensor,
     d_t = (grad * bg).sum(dim=-1, keepdim=True)
     zeros = torch.zeros_like(d_t)
     planes = torch.cat([grad, zeros, d_t, zeros.expand(hp, wp, 3)], dim=-1)
-    dpix = planes.reshape(nty, th, ntx, tw, NUM_OUT).permute(0, 2, 4, 1, 3)
-    dpix = dpix.reshape(ntx * nty, NUM_OUT, th * tw).contiguous()
+    dpix = planes.reshape(rows, th, ntx, tw, NUM_OUT).permute(0, 2, 4, 1, 3)
+    dpix = dpix.reshape(ntx * rows, NUM_OUT, th * tw).contiguous()
 
     per_px = torch.cat([
         (diff.abs() * valid).sum(dim=-1, keepdim=True),
         (diff * diff * valid).sum(dim=-1, keepdim=True),
         (dssim * valid).sum(dim=-1, keepdim=True),
         valid], dim=-1)  # (hp, wp, 4)
-    sums = per_px.reshape(nty, th, ntx, tw, NUM_SUMS).permute(0, 2, 1, 3, 4)
-    sums = sums.reshape(ntx * nty, th * tw, NUM_SUMS).sum(dim=1)
+    sums = per_px.reshape(rows, th, ntx, tw, NUM_SUMS).permute(0, 2, 1, 3, 4)
+    sums = sums.reshape(ntx * rows, th * tw, NUM_SUMS).sum(dim=1)
     return dpix, sums
 
 
-def _tile_loss_cuda(out, target, img_w, img_h, ntx, nty, cfg, settings):
+def tile_loss_gradient_plain(out: torch.Tensor, target: torch.Tensor,
+                             img_w: int, img_h: int, ntx: int, nty: int,
+                             cfg: LossConfig, settings: RenderSettings):
+    """Plain torch version of the kernel on the whole frame: the band from
+    row 0 whose clamps never reach its boundary slices (zeros here).
+    (dpix (T, NUM_OUT, P), per-tile sums (T, NUM_SUMS))."""
+    halo = torch.zeros((ntx, NUM_OUT, HALF * settings.tile_w),
+                       dtype=torch.float32, device=out.device)
+    return band_tile_loss_gradient_plain(out, halo, halo, target, 0, img_w,
+                                         img_h, ntx, nty, cfg, settings)
+
+
+def _band_tile_loss_cuda(out, halo_top, halo_bot, target, row_base, img_w,
+                         img_h, ntx, rows, cfg, settings):
     lib = _build.library()
-    n_tiles = ntx * nty
     dpix = torch.empty_like(out)
-    sums = torch.empty((n_tiles, NUM_SUMS), dtype=torch.float32,
+    sums = torch.empty((ntx * rows, NUM_SUMS), dtype=torch.float32,
                        device=out.device)
     bg = settings.background
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.webdgs_tile_loss(
-            out.data_ptr(), target.data_ptr(), n_tiles, ntx,
-            settings.tile_w, settings.tile_h, img_w, img_h, cfg.lambda_l1,
-            cfg.lambda_l2, cfg.lambda_dssim, cfg.c1, cfg.c2, bg[0], bg[1],
-            bg[2], dpix.data_ptr(), sums.data_ptr(), stream)
+        err = lib.webdgs_tile_loss_band(
+            out.data_ptr(), halo_top.data_ptr(), halo_bot.data_ptr(),
+            target.data_ptr(), row_base, rows, ntx, settings.tile_w,
+            settings.tile_h, img_w, img_h, cfg.lambda_l1, cfg.lambda_l2,
+            cfg.lambda_dssim, cfg.c1, cfg.c2, bg[0], bg[1], bg[2],
+            dpix.data_ptr(), sums.data_ptr(), stream)
     _build.check(err, "tile_loss_gradient")
     tile_loss_tiles.kernel_launches += 1
     return dpix, sums
 
 
+def _tile_loss_cuda(out, target, img_w, img_h, ntx, nty, cfg, settings):
+    # the whole frame as one band from row 0: its boundary slices are
+    # never read, so the buffer itself stands in for them
+    return _band_tile_loss_cuda(out, out, out, target, 0, img_w, img_h, ntx,
+                                nty, cfg, settings)
+
+
+def band_tile_loss_gradient(out: torch.Tensor, halo_top: torch.Tensor,
+                            halo_bot: torch.Tensor, target: torch.Tensor,
+                            row_base: int, img_w: int, img_h: int, ntx: int,
+                            rows: int, cfg: LossConfig,
+                            settings: RenderSettings):
+    """The pixel cotangent of ONE band of ``rows`` tile rows from global
+    tile row ``row_base`` (a Python int: every rank knows its band), given
+    the 2-pixel boundary slices of the bands above and below
+    (:func:`halo_slices` of those bands): (dpix (rows*ntx, NUM_OUT, P),
+    per-tile sums (rows*ntx, NUM_SUMS)); sum the sums over every band and
+    feed :func:`metrics_from_sums`.
+
+    ``target`` is the whole (H, W, 3) frame.  At the frame's borders the
+    slices are never read (the edge clamps stay inside [0, img_h)), so any
+    values do; tiles wholly below the frame (padding rows) get zero dpix
+    and sums.  Needs ``tile_h >= 2``.  The kernel launches count in
+    ``tile_loss_tiles.kernel_launches``."""
+    _check_band(out, halo_top, halo_bot, target, row_base, img_w, img_h,
+                ntx, rows, settings)
+    if out.device.type == "cpu":
+        return band_tile_loss_gradient_plain(out, halo_top, halo_bot, target,
+                                             row_base, img_w, img_h, ntx,
+                                             rows, cfg, settings)
+    if out.device.type != "cuda":
+        raise ValueError(f"unsupported device {out.device}")
+    return _band_tile_loss_cuda(out, halo_top, halo_bot, target, row_base,
+                                img_w, img_h, ntx, rows, cfg, settings)
+
+
 def tile_loss_tiles(out: torch.Tensor, target: torch.Tensor, img_w: int,
                     img_h: int, ntx: int, nty: int, cfg: LossConfig,
                     settings: RenderSettings):
-    """The kernel's function: (dpix (T, NUM_OUT, P), per-tile sums
-    (T, NUM_SUMS)).  ``tile_loss_tiles.kernel_launches`` counts the CUDA
-    kernel's launches."""
+    """The kernel's function on the whole frame: (dpix (T, NUM_OUT, P),
+    per-tile sums (T, NUM_SUMS)).  ``tile_loss_tiles.kernel_launches``
+    counts the CUDA kernel's launches (the band form's too)."""
     _check_inputs(out, target, img_w, img_h, ntx, nty, settings)
+    if nty * settings.tile_h < img_h:
+        raise ValueError("the tile grid does not cover the frame")
     if out.device.type == "cpu":
         return tile_loss_gradient_plain(out, target, img_w, img_h, ntx, nty,
                                         cfg, settings)
