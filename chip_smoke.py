@@ -121,12 +121,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
      slot of one 960x540 metric view of the post-event state and the
      one-row segment sum of its counts matches its plain version there,
      and a small event on the card matches the same event on the CPU;
+  9b. gs-train: on a 1-rank NCCL group, a GsTrainer and a Trainer of the
+     same seed over the same scene, views and config, 5 steps with events
+     at iterations 2 and 4: parameters, moments, alive masks, losses and
+     event counts bit-identical; ms, waits by line and launches per step
+     and per event (none of the event's waits from parallel/sharding.py
+     or the kernel wrappers, one from parallel/gs_trainer.py), peak
+     memory;
  10. ``train`` with densification and ``export`` on the synthetic dataset:
      exit 0, logged point counts that change, a PLY that loads;
  10b. ``python -m torch.distributed.run --nproc_per_node=1 -m
-     webdgs_tpu_torch train --shard dp`` with densification on the same
-     dataset: exit 0, a checkpoint, finite losses, and every kernel
-     launched in that process (its report's counts, from 0);
+     webdgs_tpu_torch train --shard dp``, then ``--shard gs``, with
+     densification on the same dataset: exit 0, a checkpoint and a PLY of
+     the logged point count, finite losses, and every kernel launched in
+     that process (its report's counts, from 0);
  11. a live-training server over HTTP: /stats shows the iteration advancing,
      /loss.jpg returns a JPEG, and an upload of the dataset sets it.
 It prints one JSON line of per-kernel results, the card line again, and as
@@ -1513,15 +1521,17 @@ def sync_tally(fn):
     """Run ``fn`` with every call that waits for the device (a read back, a
     blocking copy) warned (``torch.cuda.set_sync_debug_mode("warn")``).
     Returns fn's result and the calls tallied by the line that made them,
-    {"file:line": count}."""
+    {"file:line": count}.  A tally inside another counts its calls
+    itself; the outer one sees the rest."""
     import torch
+    prev = torch.cuda.get_sync_debug_mode()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
-            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.set_sync_debug_mode(prev)
     syncs: dict[str, int] = {}
     for wn in caught:
         # "called a synchronizing CUDA operation"; not the debug mode's own
@@ -1548,19 +1558,19 @@ def backward_wrapper_lines() -> list[tuple[str, int, int]]:
     return spans
 
 
-def densify_phase(dev, s1m, n: int = 1_000_000,
-                  size: tuple[int, int] = (1920, 1080)) -> dict:
-    """Two densify events through the Trainer at 1M sh3 / 1920x1080 with
-    10 synthetic views (the default metric_views=10, metric_downscale=2:
-    960x540).  The views are cameras near (0, 0, -10); their targets are
+def densify_setup(dev, s1m, n: int = 1_000_000,
+                  size: tuple[int, int] = (1920, 1080)):
+    """The densify run's scene, views and config: the 1M sh3 scene, 10
+    synthetic views with cameras near (0, 0, -10) whose targets are
     renders of the scene with positions and SH perturbed by a fixed numpy
-    noise.  Thresholds are set so that each event clones, splits and
-    prunes."""
+    noise, and the default metric_views=10, metric_downscale=2 (960x540)
+    with events at iterations 2 and 4 and thresholds under which each
+    event clones, splits and prunes.  Returns (scene, cameras, images,
+    config)."""
     import torch
     from webdgs_tpu_torch.core.camera import CameraData, make_camera
     from webdgs_tpu_torch.render.renderer import render
     from webdgs_tpu_torch.train.config import load_trainer_config
-    from webdgs_tpu_torch.train.trainer import Trainer
 
     W, H = size
     big = scene_1m(dev, n)
@@ -1597,6 +1607,18 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
         "seed": 0})
     check(cfg.densify.metric_views == 10 and cfg.densify.metric_downscale
           == 2, "densify phase must use the default metric views")
+    return big, cams, imgs, cfg
+
+
+def densify_phase(dev, s1m, n: int = 1_000_000,
+                  size: tuple[int, int] = (1920, 1080)) -> dict:
+    """Two densify events through the Trainer at 1M sh3 / 1920x1080 with
+    10 synthetic views (densify_setup)."""
+    import torch
+    from webdgs_tpu_torch.train.trainer import Trainer
+
+    W, H = size
+    big, cams, imgs, cfg = densify_setup(dev, s1m, n, size)
     trainer = Trainer(big, cams, imgs, cfg, s1m)
     del big, imgs
 
@@ -2214,17 +2236,19 @@ def dp_phase(dev, big, settings, size=(1920, 1080)) -> dict:
             "tile_sharded_err": ts_err}
 
 
-def cli_dp_phase(tmp: str, data: str, sparse: str,
-                 device: str = "cuda") -> dict:
+def cli_shard_phase(tmp: str, data: str, sparse: str, shard: str,
+                    device: str = "cuda") -> dict:
     """[cli]: ``python -m torch.distributed.run --nproc_per_node=1 -m
-    webdgs_tpu_torch train --shard dp`` with densification (events at 10,
-    20, 30): exit 0, a checkpoint, finite losses, changing point counts,
-    and the run's kernel launches (its report) from 0 up for all six
-    kernels."""
+    webdgs_tpu_torch train --shard dp|gs`` with densification (events at
+    10, 20, 30): exit 0, a checkpoint and a PLY of the logged point count,
+    finite losses, changing point counts, and the run's kernel launches
+    (its report) from 0 up for all six kernels."""
     import socket
     from webdgs_tpu_torch.io.checkpoint import load_checkpoint
-    ck = os.path.join(tmp, "ck_dp.npz")
-    report = os.path.join(tmp, "report_dp.json")
+    from webdgs_tpu_torch.io.ply import load_point_cloud
+    ck = os.path.join(tmp, f"ck_{shard}.npz")
+    ply = os.path.join(tmp, f"{shard}.ply")
+    report = os.path.join(tmp, f"report_{shard}.json")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -2232,7 +2256,7 @@ def cli_dp_phase(tmp: str, data: str, sparse: str,
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
          "--master_port", str(port), "-m", "webdgs_tpu_torch", "train",
-         "--shard", "dp", "--points", os.path.join(sparse, "points3D.bin"),
+         "--shard", shard, "--points", os.path.join(sparse, "points3D.bin"),
          "--cameras", os.path.join(sparse, "images.bin"),
          os.path.join(sparse, "cameras.bin"), "--images",
          os.path.join(data, "images"), "--iterations", "30",
@@ -2240,28 +2264,34 @@ def cli_dp_phase(tmp: str, data: str, sparse: str,
          "--densify-interval", "10", "--densify-stop", "30",
          "--metric-threshold", "0.3", "--clone-threshold", "1",
          "--prune-opacity", "0.72", "--device", device, "--out", ck,
-         "--report", report], capture_output=True, text=True, timeout=600)
+         "--export-ply", ply, "--report", report], capture_output=True,
+        text=True, timeout=600)
     cli_s = time.perf_counter() - t0
-    check(proc.returncode == 0,
-          f"train --shard dp exited {proc.returncode}: {proc.stderr[-3000:]}")
-    check("sharding 'dp' over 1 device(s)" in proc.stdout,
-          "train --shard dp did not report its mesh")
+    check(proc.returncode == 0, f"train --shard {shard} exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    check(f"sharding '{shard}' over 1 device(s)" in proc.stdout,
+          f"train --shard {shard} did not report its mesh")
     points = [int(x) for x in re.findall(r"points=(\d+)", proc.stdout)]
     losses = [float(x) for x in re.findall(r"loss=(\S+)", proc.stdout)]
     check(len(losses) == 30 and all(map(math.isfinite, losses)) and
-          len(set(points)) > 1, f"train --shard dp logged points "
+          len(set(points)) > 1, f"train --shard {shard} logged points "
           f"{sorted(set(points))}, losses {losses[:3]}...")
-    _, _, meta = load_checkpoint(ck, "cpu")
-    check(meta["iteration"] == 30, f"checkpoint at {meta['iteration']}")
+    scene, _, meta = load_checkpoint(ck, "cpu")
+    n_ply = int(load_point_cloud(ply, "cpu").num_alive())
+    check(meta["iteration"] == 30 and int(scene.num_alive()) == points[-1]
+          == n_ply, f"checkpoint at {meta['iteration']} of "
+          f"{int(scene.num_alive())} points, PLY {n_ply}, logged "
+          f"{points[-1]}")
     with open(report) as f:
         launches = json.load(f)["kernel_launches"]
     check(all(v > 0 for v in launches.values()),
-          f"a kernel of train --shard dp did not launch: {launches}")
+          f"a kernel of train --shard {shard} did not launch: {launches}")
     print(f"[cli] torchrun --nproc_per_node=1 -m webdgs_tpu_torch train "
-          f"--shard dp, 30 iterations with densification on 4 synthetic "
-          f"800x600 views: exit 0 in {cli_s:.1f} s; points {points[0]} -> "
-          f"{points[-1]}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"checkpoint at iteration 30; launches {launches}", flush=True)
+          f"--shard {shard}, 30 iterations with densification on 4 "
+          f"synthetic 800x600 views: exit 0 in {cli_s:.1f} s; points "
+          f"{points[0]} -> {points[-1]}; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; checkpoint at iteration 30 and PLY of "
+          f"{n_ply} points; launches {launches}", flush=True)
     return {"launches": launches, "seconds": cli_s}
 
 
@@ -2541,6 +2571,172 @@ def gs_phase(dev, big, settings, size=(1920, 1080)) -> dict:
             "render_err": r_err, "render_bit_identical": r_same,
             "f16_max": f16_max, "f16_mean": f16_mean, "step_err": err,
             "step_bit_identical": same, "band": band}
+
+
+def gs_train_phase(dev, s1m, n: int = 1_000_000,
+                   size: tuple[int, int] = (1920, 1080)) -> dict:
+    """[gs-train]: GsTrainer on a 1-rank NCCL band group beside a Trainer
+    of the same seed, over the densify run's scene, views and config
+    (densify_setup: 1M sh3, 10 views at 1920x1080, events at iterations 2
+    and 4), 5 steps each, with the f32 entry exchange.  After both events
+    the GsTrainer's parameters,
+    moments and alive mask must equal the Trainer's bit for bit, with its
+    losses and its events' counts.  Records ms per step and per event
+    (host clock, synchronized), peak memory, each step's and each event's
+    synchronizing calls by line, and the kernels' launches per step and
+    per event (every counter reset just before the GsTrainer's run); the
+    Trainer's ms per step and per event beside them."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from webdgs_tpu_torch.parallel.gs_trainer import GsTrainer
+    from webdgs_tpu_torch.parallel.sharding import make_mesh
+    from webdgs_tpu_torch.train.trainer import Trainer
+
+    W, H = size
+    # the f32 exchange: the f16 one rounds the entry rows on their way to
+    # the band's owner, even with one band
+    s1m = dataclasses.replace(s1m, exchange_f16=False)
+    big, cams, imgs, cfg = densify_setup(dev, s1m, n, size)
+    keys = ("iteration", "in", "out", "cloned", "split", "pruned")
+    ref = Trainer(big, cams, imgs, cfg, s1m)
+    ref_events, ref_ms = [], []
+    ref_densify = ref._run_densify
+
+    def recorded(w_, h_):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_densify(w_, h_)
+        torch.cuda.synchronize()
+        ref_events.append({k: ref.last_densify_event[k] for k in keys})
+        ref_events[-1]["ms"] = 1e3 * (time.perf_counter() - t0)
+
+    ref._run_densify = recorded
+    ref_losses = []
+    for _ in range(5):
+        n_ev = len(ref_events)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_losses.append(ref.step()["loss"])
+        torch.cuda.synchronize()
+        ref_ms.append(1e3 * (time.perf_counter() - t0) - (
+            ref_events[-1]["ms"] if len(ref_events) > n_ev else 0.0))
+    ref_losses = [float(x) for x in ref_losses]
+    ref_event_ms = [ev.pop("ms") for ev in ref_events]
+
+    mesh = make_mesh(axis_name="band")
+    try:
+        check(mesh.size == 1 and mesh.band_size == 1 and
+              dist.get_backend() == "nccl", f"make_mesh(): {mesh}")
+        tr = GsTrainer(big, cams, imgs, cfg, s1m, mesh=mesh)
+        del big, imgs
+        events = []
+        run_densify = tr._run_densify
+
+        def timed_densify(w_, h_):
+            torch.cuda.synchronize()
+            before = (kernel_counters(), tr.num_points, tr.capacity)
+            t0 = time.perf_counter()
+            _, syncs = sync_tally(lambda: run_densify(w_, h_))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            after = kernel_counters()
+            events.append({
+                "ms": ms, "syncs": syncs,
+                "launches": {k: after[k] - before[0][k] for k in after},
+                "points": (before[1], tr.num_points),
+                "capacity": (before[2], tr.capacity),
+                **{k: tr.last_densify_event[k] for k in keys}})
+
+        tr._run_densify = timed_densify
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counters()
+        steps, losses = [], []
+        for _ in range(5):
+            n_ev = len(events)
+            before = kernel_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, syncs = sync_tally(tr.step)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            after = kernel_counters()
+            launches = {k: after[k] - before[k] for k in after}
+            if len(events) > n_ev:  # the step's own share
+                ms -= events[-1]["ms"]
+                launches = {k: v - events[-1]["launches"][k]
+                            for k, v in launches.items()}
+            steps.append({"ms": ms, "syncs": syncs, "launches": launches})
+            losses.append(float(metrics["loss"]))
+        launches = kernel_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        full, fopt = tr.full_scene(), tr.full_opt_state()
+        same = {k: torch.equal(full.params()[k], ref.scene.params()[k])
+                for k in full.params()}
+        same["alive"] = torch.equal(full.alive, ref.scene.alive)
+        same["m"] = torch.equal(fopt.m, ref.opt_state.m)
+        same["v"] = torch.equal(fopt.v, ref.opt_state.v)
+        got_events = [{k: ev[k] for k in keys} for ev in events]
+        print(f"[gs-train] GsTrainer {n} sh3 {W}x{H}, 1-rank NCCL band group"
+              f", 5 steps with events at iterations 2 and 4 beside a "
+              f"Trainer of the same seed: bit-identical {same}; losses "
+              f"{losses} (Trainer {ref_losses}); events {got_events} "
+              f"(Trainer {ref_events}); points {tr.num_points} (Trainer "
+              f"{ref.num_points}); capacity {tr.capacity}", flush=True)
+        for i, st in enumerate(steps):
+            print(f"[gs-train] step {i + 1}: {st['ms']:.2f} ms host "
+                  f"(synchronized, its event excluded; the Trainer's "
+                  f"{ref_ms[i]:.2f}); "
+                  f"{sum(st['syncs'].values())} waits {st['syncs']}; "
+                  f"launches {st['launches']}", flush=True)
+        for i, ev in enumerate(events):
+            print(f"[gs-train] event {i + 1} at iteration {ev['iteration']}"
+                  f": {ev['ms']:.2f} ms host (synchronized; the Trainer's "
+                  f"{ref_event_ms[i]:.2f}); points "
+                  f"{ev['points'][0]} -> {ev['points'][1]}; capacity "
+                  f"{ev['capacity'][0]} -> {ev['capacity'][1]}; cloned "
+                  f"{ev['cloned']}, split {ev['split']}, pruned "
+                  f"{ev['pruned']}; {sum(ev['syncs'].values())} waits "
+                  f"{ev['syncs']}; launches {ev['launches']}", flush=True)
+        print(f"[gs-train] 5 steps + 2 events: launches {launches}; peak "
+              f"device memory {peak_gb:.2f} GiB; caps entry "
+              f"{tr._gs_entry_cap}, send {tr._gs_send_cap}", flush=True)
+        check(len(events) == 2, f"expected 2 gs events, got {len(events)}")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel did not launch in the GsTrainer run: {launches}")
+        for ev in events:
+            check(ev["cloned"] > 0 and ev["split"] > 0 and ev["pruned"] > 0
+                  and ev["points"][1] != ev["points"][0],
+                  f"gs event did not clone, split and prune: {ev}")
+            mine = {k: v for k, v in ev["syncs"].items()
+                    if any(f"{m}.py" in k for m in (
+                        "ops/segsum", "ops/rasterize", "ops/importance",
+                        "parallel/sharding"))}
+            own = sum(v for k, v in ev["syncs"].items()
+                      if "parallel/gs_trainer.py" in k)
+            check(not mine and own == 1, f"the gs event waits: "
+                  f"{ev['syncs']}")
+        check(events[0]["capacity"][1] > events[0]["capacity"][0],
+              f"capacity did not grow: {events[0]}")
+        for i, st in enumerate(steps):
+            mine = {k: v for k, v in st["syncs"].items()
+                    if "parallel/" in k and (i > 0 or "sharding" in k)}
+            check(not mine, f"gs step {i + 1} waits: {st['syncs']}")
+            check(all(st["launches"][k] == 1 for k in TRAIN_KERNELS),
+                  f"gs step {i + 1} launches {st['launches']}")
+        check(all(same.values()) and losses == ref_losses and
+              got_events == ref_events and tr.num_points == ref.num_points,
+              "the 1-rank GsTrainer differs from the Trainer")
+        del tr, full, fopt
+    finally:
+        mesh.close()
+    del ref
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "events": events,
+            "peak_gb": peak_gb, "bit_identical": same, "ref_ms": ref_ms,
+            "ref_event_ms": ref_event_ms}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2990,6 +3186,7 @@ def main(argv: list[str] | None = None) -> int:
 
     densify_res = densify_phase(dev, s1m)
     small_event_phase(dev, settings)
+    gs_train_res = gs_train_phase(dev, s1m)
 
     # --- 7. the view-mode server over HTTP ---
     from PIL import Image
@@ -3062,7 +3259,8 @@ def main(argv: list[str] | None = None) -> int:
               f"{ev['points']} points; checkpoint + PLY written", flush=True)
 
         cli_densify_phase(tmp, data, sparse)
-        cli_dp_res = cli_dp_phase(tmp, data, sparse)
+        cli_dp_res = cli_shard_phase(tmp, data, sparse, "dp")
+        cli_gs_res = cli_shard_phase(tmp, data, sparse, "gs")
         live_server_phase(dev, data, sparse)
 
     dlaunch = densify_res["launches"]
@@ -3084,14 +3282,18 @@ def main(argv: list[str] | None = None) -> int:
     # the train command's report names the wrappers, this line the kernels
     cli_dp_launches = {name: cli_dp_res["launches"][fn]
                        for _, fn, name in KERNEL_COUNTERS}
+    cli_gs_launches = {name: cli_gs_res["launches"][fn]
+                       for _, fn, name in KERNEL_COUNTERS}
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, lib_ms,
               **extra):
         # launches: the training path's 20 steps; launches_densify: the
         # densify run's 4 steps and 2 events; launches_banded: 6
         # render_banded frames at 8K; launches_dp: 3 dp steps of 2 views;
-        # launches_gs: 3 gs_train_steps on one rank; launches_cli_dp: the
-        # train --shard dp command's 30 iterations
+        # launches_gs: 3 gs_train_steps on one rank; launches_gs_trainer:
+        # the GsTrainer's 5 steps and 2 events (its per step and per event
+        # beside them); launches_cli_dp / launches_cli_gs: the train --shard
+        # dp / gs command's 30 iterations
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": train_launches.get(name, dlaunch[name]),
@@ -3102,6 +3304,12 @@ def main(argv: list[str] | None = None) -> int:
                 "launches_dp": dp_res["launches"].get(name, 0),
                 "launches_gs": gs_res["launches"].get(name, 0),
                 "launches_cli_dp": cli_dp_launches[name],
+                "launches_gs_trainer": gs_train_res["launches"][name],
+                "launches_gs_trainer_per_step":
+                    gs_train_res["steps"][-1]["launches"][name],
+                "launches_gs_trainer_per_event":
+                    gs_train_res["events"][-1]["launches"][name],
+                "launches_cli_gs": cli_gs_launches[name],
                 **extra}
 
     def expand_reading(r):

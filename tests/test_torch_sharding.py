@@ -221,7 +221,7 @@ def test_train_command_shard_dp_under_torchrun(tmp_path):
     """``torchrun --nproc_per_node=2 -m webdgs_tpu_torch train --shard dp
     --device cpu``: exit 0, one 'sharding' line and one log line per
     iteration (rank 0 alone logs), a checkpoint with the run's iteration;
-    ``--shard gs`` is refused, naming the later slice."""
+    ``serve --train`` refuses a sharded trainer (``--shard gs``)."""
     from webdgs_tpu_torch.io.checkpoint import load_checkpoint
     data = tmp_path / "scene"
     subprocess.run([sys.executable, os.path.join(
@@ -251,7 +251,8 @@ def test_train_command_shard_dp_under_torchrun(tmp_path):
     assert np.isfinite(losses).all()
     _, _, meta = load_checkpoint(str(ck), "cpu")
     assert meta["iteration"] == 6
-    refused = subprocess.run([sys.executable] + train + ["--shard", "gs"],
-                             capture_output=True, text=True, timeout=300,
-                             cwd=ROOT, env=env)
-    assert refused.returncode != 0 and "later" in refused.stderr
+    serve = ["-m", "webdgs_tpu_torch", "serve", "--train"] + train[3:10] + [
+        "--device", "cpu", "--shard", "gs"]
+    refused = subprocess.run([sys.executable] + serve, capture_output=True,
+                             text=True, timeout=300, cwd=ROOT, env=env)
+    assert refused.returncode != 0 and "--shard none" in refused.stderr

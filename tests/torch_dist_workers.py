@@ -1,6 +1,7 @@
-"""Rank workers of tests/test_torch_sharding.py: each case runs on every
-rank of a gloo group started by ``torch.multiprocessing.spawn`` and saves
-its arrays to ``<out_dir>/<case>_r<rank>.npz`` for the parent to check.
+"""Rank workers of tests/test_torch_sharding.py and tests/test_torch_gs_*.py:
+each case runs on every rank of a gloo group started by
+``torch.multiprocessing.spawn`` and saves its arrays to
+``<out_dir>/<case>_r<rank>.npz`` for the parent to check.
 
 This module imports torch and the port only, never jax: a spawned rank
 imports it afresh, and the JAX side of a parity test runs in the parent.
@@ -19,9 +20,14 @@ from webdgs_tpu_torch.config import RenderSettings
 from webdgs_tpu_torch.core.camera import CameraData, default_camera
 from webdgs_tpu_torch.core.scene import scene_from_numpy
 from webdgs_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
-from webdgs_tpu_torch.ops.adam import (AdamHyperparameters, adam_step,
-                                       init_adam_state)
+from webdgs_tpu_torch.ops import densify as densify_ops
+from webdgs_tpu_torch.ops.adam import (AdamHyperparameters, AdamState,
+                                       adam_step, init_adam_state)
 from webdgs_tpu_torch.ops.loss import LossConfig
+from webdgs_tpu_torch.parallel.gs_trainer import (GsTrainer,
+                                                  gs_densify_event,
+                                                  rebalance_shards,
+                                                  sharded_importance_counts)
 from webdgs_tpu_torch.parallel.sharding import (dp_train_step,
                                                 gaussian_shard, gs_train_step,
                                                 make_mesh,
@@ -275,10 +281,172 @@ def case_gs_mesh2d(mesh, inp, out_dir):
     return out
 
 
+def _state(inp):
+    """The parent's whole scene (``params`` with its ``alive`` mask) and
+    moments ``m`` / ``v``."""
+    scene = scene_from_numpy(inp["params"], inp["alive"], 0, "cpu")
+    return scene, AdamState(torch.tensor(inp["m"]), torch.tensor(inp["v"]),
+                            7)
+
+
+def _shard_arrays(prefix, scene, opt):
+    return {**_params(prefix, scene.params()), f"{prefix}alive":
+            _np(scene.alive), f"{prefix}m": _np(opt.m),
+            f"{prefix}v": _np(opt.v)}
+
+
+def case_gs_rebalance(mesh, inp, out_dir):
+    """rebalance_shards of the parent's whole state, sharded: with the
+    split sizes read from the device, and, for ``prefix_counts`` (every
+    shard's alive rows a prefix of that length), also from the host."""
+    scene, opt = _state(inp)
+    new = rebalance_shards(gaussian_shard(scene, mesh),
+                           gaussian_shard(opt, mesh), mesh)
+    out = _shard_arrays("", *new)
+    counts = inp["prefix_counts"]
+    n_loc = scene.capacity // mesh.band_size
+    lane = np.arange(n_loc)[None, :] < np.asarray(counts)[:, None]
+    pre = scene_from_numpy(inp["params"], lane.reshape(-1), 0, "cpu")
+    for prefix, known in (("dev_", None), ("host_", list(counts))):
+        out.update(_shard_arrays(prefix, *rebalance_shards(
+            gaussian_shard(pre, mesh), gaussian_shard(opt, mesh), mesh,
+            shard_alive=known)))
+    return out
+
+
+def _event_cameras(inp):
+    mw, mh = inp["metric_size"]
+    return [default_camera(mw, mh, position=tuple(p), device="cpu")
+            for p in inp["positions"]]
+
+
+def case_gs_event(mesh, inp, out_dir):
+    """gs_densify_event on this rank's shards of the parent's (rebalanced)
+    state, the parent's clone/split noise injected, and the sharded
+    importance counts alone."""
+    densify_ops.densify_rng = lambda gen, n: (
+        torch.tensor(inp["noise_u"][:n]), torch.tensor(inp["noise_d"][:n]))
+    scene, opt = _state(inp)
+    mw, mh = inp["metric_size"]
+    cfg = DensifyPruneConfig(**inp["cfg"])
+    cams, targets = _event_cameras(inp), torch.tensor(inp["targets"])
+    counts = sharded_importance_counts(
+        scene, cams, targets, mesh, mw=mw, mh=mh,
+        threshold=cfg.metric_threshold, settings=SETTINGS)
+    res = gs_densify_event(gaussian_shard(scene, mesh),
+                           gaussian_shard(opt, mesh), cams, targets, mesh,
+                           torch.Generator(), mw=mw, mh=mh, cfg=cfg,
+                           settings=SETTINGS)
+    return {**_shard_arrays("", res.scene, res.opt_state),
+            "counts": _np(counts), "shard_totals": _np(res.shard_totals),
+            **{k: np.asarray(int(getattr(res, k))) for k in (
+                "out_total", "in_alive", "n_cloned", "n_split",
+                "n_pruned")}}
+
+
+def _gs_trainer_config(inp):
+    sched = inp.get("schedule")
+    return TrainerConfig(max_iterations=inp.get("max_iterations", 10_000),
+                         densify=DensifyPruneConfig(
+        schedule=DensifySchedule(enabled=False) if sched is None else
+        DensifySchedule(enabled=True, warmup_iterations=sched[0],
+                        interval=sched[1], stop_iterations=sched[2]),
+        **inp.get("densify", {})))
+
+
+def _gs_trainer(mesh, inp, settings=None):
+    """A GsTrainer over the parent's views (the f32 exchange unless
+    ``inp["f16"]``)."""
+    if settings is None:
+        settings = SETTINGS if inp.get("f16") else SETTINGS_EXACT
+    cams, imgs = _views(inp)
+    return GsTrainer(_scene(inp["params"]), cams, imgs,
+                     _gs_trainer_config(inp), settings, mesh=mesh,
+                     initial_capacity=inp.get("capacity"))
+
+
+def _trainer_state(prefix, tr):
+    scene, opt = tr.full_scene(), tr.full_opt_state()
+    return {**_shard_arrays(prefix, scene, opt),
+            f"{prefix}num_points": np.asarray(tr.num_points),
+            f"{prefix}densified_at": np.asarray(
+                tr.last_densify_iteration or -1)}
+
+
+def case_gs_trainer(mesh, inp, out_dir):
+    """``steps`` GsTrainer steps: losses, the event iteration, the whole
+    state (gathered on every rank), this rank's shard, the capacities; on
+    a world of one also the single-device Trainer of the same seeds."""
+    tr = _gs_trainer(mesh, inp)
+    losses = [float(tr.step()["loss"]) for _ in range(inp["steps"])]
+    out = {"losses": np.asarray(losses), **_trainer_state("", tr),
+           **_shard_arrays("shard_", tr.scene, tr.opt_state),
+           "caps": np.asarray([tr._gs_entry_cap or -1,
+                               tr._gs_send_cap or -1]),
+           "capacity": np.asarray(tr.capacity),
+           "band_rank": np.asarray(mesh.band_rank),
+           "dp_rank": np.asarray(mesh.dp_rank)}
+    if mesh.size == 1:
+        cams, imgs = _views(inp)
+        ref = Trainer(_scene(inp["params"]), cams, imgs,
+                      _gs_trainer_config(inp), SETTINGS_EXACT,
+                      initial_capacity=inp.get("capacity"))
+        out["ref_losses"] = np.asarray(
+            [float(ref.step()["loss"]) for _ in range(inp["steps"])])
+        out.update(_trainer_state("ref_", ref))
+    return out
+
+
+def case_gs_adaptive(mesh, inp, out_dir):
+    """A concentrated scene at 16x16 tiles that starts with a one-chunk
+    send budget and a roomy entry capacity: the drops of each step."""
+    s16 = dataclasses.replace(SETTINGS, tile_w=16, tile_h=16)
+    tr = _gs_trainer(mesh, inp, s16)
+    tr.ENTRY_CAP_INTERVAL = 2
+    tr._gs_send_cap = s16.chunk  # deliberately too small
+    tr._gs_entry_cap = 1024  # so that the send budget binds
+    dropped = [int(tr.step()["entries_dropped"]) for _ in range(8)]
+    return {"dropped": np.asarray(dropped),
+            "send_cap": np.asarray(tr._gs_send_cap)}
+
+
+def case_gs_rollback(mesh, inp, out_dir):
+    """``train`` with the loss poisoned at iteration 4 on every rank."""
+    tr = _gs_trainer(mesh, inp)
+    tr.SNAPSHOT_INTERVAL = 2
+    step, rollback = tr.step, tr._rollback
+    events = {"poisoned": 0, "rollbacks": 0}
+
+    def poisoned_step():
+        m = step()
+        if tr.iteration == 4 and not events["poisoned"]:
+            events["poisoned"] = 1
+            m = dict(m, loss=torch.tensor(float("nan")))
+        return m
+
+    def counted_rollback():
+        events["rollbacks"] += 1
+        rollback()
+
+    tr.step, tr._rollback = poisoned_step, counted_rollback
+    logs = []
+    last = tr.train(num_iterations=8, log_every=0, log_fn=logs.append)
+    return {"logs": np.asarray("\n".join(logs)),
+            "events": np.asarray([events["poisoned"], events["rollbacks"]]),
+            "last_loss": np.asarray(last["loss"]),
+            "iteration": np.asarray(tr.iteration),
+            "finite": np.asarray(all(bool(torch.isfinite(v).all())
+                                     for v in tr.scene.params().values())),
+            "shard_capacity": np.asarray(tr.scene.capacity),
+            "capacity": np.asarray(tr.capacity)}
+
+
 CASES = {"tile_sharded": case_tile_sharded, "dp_step": case_dp_step,
          "trainer": case_trainer, "trainer_densify": case_trainer_densify,
          "gs_render": case_gs_render, "gs_step": case_gs_step,
-         "gs_mesh2d": case_gs_mesh2d}
+         "gs_mesh2d": case_gs_mesh2d, "gs_rebalance": case_gs_rebalance,
+         "gs_event": case_gs_event, "gs_trainer": case_gs_trainer,
+         "gs_adaptive": case_gs_adaptive, "gs_rollback": case_gs_rollback}
 
 
 def rank_main(rank: int, world: int, store: str, case: str, out_dir: str,

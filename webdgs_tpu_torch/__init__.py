@@ -17,3 +17,34 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+# name -> (module, attribute): the reference's top-level API
+# (webdgs_tpu/__init__.py), resolved to the port's objects
+_API = {
+    "GaussianScene": ("webdgs_tpu_torch.core.scene", "GaussianScene"),
+    "Camera": ("webdgs_tpu_torch.core.camera", "Camera"),
+    "make_camera": ("webdgs_tpu_torch.core.camera", "make_camera"),
+    "RenderSettings": ("webdgs_tpu_torch.config", "RenderSettings"),
+    "render": ("webdgs_tpu_torch.render.renderer", "render"),
+    "Viewer": ("webdgs_tpu_torch.render.viewer", "Viewer"),
+    "Trainer": ("webdgs_tpu_torch.train.trainer", "Trainer"),
+    "TrainerConfig": ("webdgs_tpu_torch.train.config", "TrainerConfig"),
+    "load_point_cloud": ("webdgs_tpu_torch.io.ply", "load_point_cloud"),
+    "save_ply": ("webdgs_tpu_torch.io.ply", "save_ply"),
+    "load_cameras": ("webdgs_tpu_torch.io.colmap", "load_cameras"),
+    "load_images": ("webdgs_tpu_torch.io.images", "load_images"),
+}
+
+
+def __getattr__(name):
+    """The lazy top-level API: ``import webdgs_tpu_torch`` loads none of
+    the modules below until a name is used."""
+    if name in _API:
+        import importlib
+        mod, attr = _API[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(
+        f"module 'webdgs_tpu_torch' has no attribute {name!r}")
+
+
+__all__ = ["__version__", *_API]

@@ -5,6 +5,8 @@
       --out ckpt.npz [--export-ply out.ply] [--no-densify] [--device cuda]
   torchrun --nproc_per_node=N -m webdgs_tpu_torch train --shard dp ...
                                          # view-data-parallel over N cards
+  torchrun --nproc_per_node=N -m webdgs_tpu_torch train --shard gs ...
+                                         # the scene sharded over N cards
   python -m webdgs_tpu_torch render scene.ply|ckpt.npz --out img.png
   python -m webdgs_tpu_torch view   scene.ply --out frames/ --orbit 24
   python -m webdgs_tpu_torch export ckpt.npz --out scene.ply
@@ -13,11 +15,12 @@
       --images ...                       # live training in the browser
 
 Every command runs on ``--device`` (default ``cuda``) and raises when that
-device is unavailable.  ``train --shard dp`` trains view-data-parallel, one
-process per card under ``torchrun`` (without a launcher, a world of one);
-only rank 0 logs and writes the checkpoint, the PLY and the report.
-``--shard gs`` (Gaussian-sharded) and the benchmark are later slices of
-the port.
+device is unavailable.  ``train --shard dp`` trains view-data-parallel and
+``train --shard gs`` with the scene and the Adam state sharded over the
+ranks (``parallel/gs_trainer.py:GsTrainer``), one process per card under
+``torchrun`` (without a launcher, a world of one); only rank 0 logs and
+writes the checkpoint, the PLY and the report, which hold the whole
+scene.  The benchmark (``bench``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ def _add_train_args(t, required: bool):
                    "convention: 8); 0 trains on everything")
     t.add_argument("--shard", choices=("none", "dp", "gs"), default="none",
                    help="'dp': view-data-parallel across the ranks of "
-                   "torchrun (one card each); 'gs' is not ported yet")
+                   "torchrun (one card each); 'gs': the scene and the Adam "
+                   "state sharded over the ranks (Gaussian-sharded)")
     # loss
     t.add_argument("--lambda-l1", type=float, default=0.8)
     t.add_argument("--lambda-l2", type=float, default=0.0)
@@ -126,18 +130,13 @@ def _build_trainer(args):
     from webdgs_tpu_torch.train.trainer import Trainer
 
     mesh = None
-    if args.shard == "gs":
-        raise SystemExit("--shard gs (Gaussian-sharded training) needs "
-                         "the Gaussian-sharded trainer (GsTrainer, "
-                         "rebalance_shards, gs_densify_event), a later "
-                         "slice of the port; the step itself is "
-                         "parallel/sharding.py:gs_train_step. Use --shard "
-                         "dp or none")
-    if args.shard == "dp":
+    if args.shard in ("dp", "gs"):
         from webdgs_tpu_torch.parallel.sharding import make_mesh
-        mesh = make_mesh(args.device, axis_name="dp")
+        mesh = make_mesh(args.device,
+                         axis_name="dp" if args.shard == "dp" else "band")
         device = mesh.device
-        _lead_print(mesh, f"sharding 'dp' over {mesh.size} device(s)")
+        _lead_print(mesh, f"sharding '{args.shard}' over {mesh.size} "
+                    "device(s)")
     else:
         device = resolve_device(args.device)
     scene = load_point_cloud(args.points, device)
@@ -188,8 +187,13 @@ def _build_trainer(args):
     if args.config:
         cfg = load_trainer_config(args.config, base=cfg)
 
-    trainer = Trainer(scene, cameras, images, cfg, _settings(args),
-                      mesh=mesh)
+    if args.shard == "gs":
+        from webdgs_tpu_torch.parallel.gs_trainer import GsTrainer
+        trainer = GsTrainer(scene, cameras, images, cfg, _settings(args),
+                            mesh=mesh)
+    else:
+        trainer = Trainer(scene, cameras, images, cfg, _settings(args),
+                          mesh=mesh)
     if args.resume:
         from webdgs_tpu_torch.io.checkpoint import load_checkpoint
         # every rank loads the same file: identical state everywhere
@@ -223,35 +227,39 @@ def cmd_train(args):
         trainer.train(log_every=args.log_every,
                       checkpoint_every=args.checkpoint_every,
                       checkpoint_path=args.out)
-        if trainer.mesh is None or trainer.mesh.rank == 0:
-            _finish_training(args, trainer, holdout)
+        # every rank takes part in a sharded trainer's gather; rank 0
+        # alone writes and reports
+        scene, opt_state = trainer.full_scene(), trainer.full_opt_state()
+        if trainer.is_lead:
+            _finish_training(args, trainer, holdout, scene, opt_state)
     finally:
         if trainer.mesh is not None:
             trainer.mesh.close()
 
 
-def _finish_training(args, trainer, holdout) -> None:
-    """The checkpoint, the PLY, the evaluation and the report."""
+def _finish_training(args, trainer, holdout, scene, opt_state) -> None:
+    """The checkpoint, the PLY, the evaluation and the report of the whole
+    ``scene`` and ``opt_state``."""
     import json
     from webdgs_tpu_torch.io.checkpoint import save_checkpoint
     from webdgs_tpu_torch.io.ply import save_ply
 
     # persist the model before the evaluation
     if args.out:
-        save_checkpoint(args.out, trainer.scene, trainer.opt_state,
+        save_checkpoint(args.out, scene, opt_state,
                         iteration=trainer.iteration)
         print(f"checkpoint -> {args.out}")
     if args.export_ply:
-        n_out = save_ply(trainer.scene, args.export_ply)
+        n_out = save_ply(scene, args.export_ply)
         print(f"exported {n_out} splats -> {args.export_ply}")
 
     report = {"iterations": trainer.iteration,
               "points": trainer.num_points,
               "iters_per_sec": round(trainer.iters_per_sec, 2),
               "kernel_launches": _kernel_launches(),
-              "train": trainer.evaluate()}
+              "train": trainer.evaluate(scene=scene)}
     if holdout[0]:
-        report["holdout"] = trainer.evaluate(views=holdout)
+        report["holdout"] = trainer.evaluate(views=holdout, scene=scene)
     print("eval:", json.dumps(report))
     if args.report:
         with open(args.report, "w") as f:

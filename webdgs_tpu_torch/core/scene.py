@@ -121,3 +121,22 @@ def scene_from_arrays(
     if capacity is not None and capacity > n:
         scene = scene.pad_to(capacity)
     return scene
+
+
+def tree_size_bytes(tree) -> int:
+    """Bytes held by the tensors (and numpy arrays) of a nested structure:
+    a GaussianScene, an AdamState, a NamedTuple, a dict, a list or a tuple.
+    Other leaves (``sh_deg``, an int iteration count) hold no buffer and
+    count 0."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, np.ndarray):
+        return tree.nbytes
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return sum(tree_size_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    if isinstance(tree, dict):
+        return sum(tree_size_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_size_bytes(v) for v in tree)
+    return 0

@@ -100,14 +100,18 @@ def _quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
             + 2.0 * s * torch.linalg.cross(u, v, dim=-1))
 
 
-def cap_counts(counts: torch.Tensor, actions: torch.Tensor, max_out):
+def cap_counts(counts: torch.Tensor, actions: torch.Tensor, max_out,
+               base_offset=0):
     """Clip counts so the outputs stay under ``max_out``, degrading boundary
-    clones/splits to keep.  Returns (counts, actions, total).  Output
+    clones/splits to keep.  ``base_offset`` (an int or a 0-d tensor) shifts
+    the output offsets: the Gaussian-sharded event passes each shard's
+    global output base, so its caps are the single-device event's.
+    Returns (counts, actions, total), total the local output count.  Output
     offsets must come from a fresh cumsum of the CLIPPED counts
     (:func:`compact_transform` recomputes them)."""
     offsets = torch.cumsum(counts, 0) - counts
-    counts = torch.minimum(torch.clamp(max_out - offsets, min=0),
-                           counts).to(counts.dtype)
+    counts = torch.minimum(torch.clamp(max_out - (offsets + base_offset),
+                                       min=0), counts).to(counts.dtype)
     total = counts.sum(dtype=torch.int32)
     degraded = (counts == 1) & ((actions == ACTION_CLONE)
                                 | (actions == ACTION_SPLIT))

@@ -1,6 +1,8 @@
-"""Spherical-harmonics colour in row form (counterpart of
-webdgs_tpu/ops/sh.py:76-132): the same basis, Condon-Shortley phases and
-k-ascending float32 sum order as the reference's ``eval_sh_color_rows``."""
+"""Spherical-harmonics colour (counterpart of webdgs_tpu/ops/sh.py): the
+same basis, Condon-Shortley phases and k-ascending float32 sum order as the
+reference's ``eval_sh_color_rows``.  The projection takes the row form;
+``sh_basis`` / ``eval_sh_color`` are the dense forms on (N, 3) directions
+and (N, 16, 3) coefficients."""
 
 from __future__ import annotations
 
@@ -16,6 +18,28 @@ SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
 
 # number of coefficients for degrees 0..3
 NUM_COEFFS = (1, 4, 9, 16)
+
+
+def sh_basis(dirs: torch.Tensor) -> torch.Tensor:
+    """The 16 real SH basis functions at unit directions (..., 3), stacked
+    on a last axis of 16."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    return torch.stack(sh_basis_rows(x, y, z, 16), dim=-1)
+
+
+def eval_sh_color(sh: torch.Tensor, dirs: torch.Tensor,
+                  sh_deg: int) -> torch.Tensor:
+    """SH -> RGB, (N, 3), degree-gated: ``sh`` (N, 16, 3), ``dirs`` (N, 3)
+    unit vectors; adds 0.5 and clamps at 0 from below.  Sums over the
+    coefficients in ascending order, as :func:`eval_sh_color_rows`."""
+    if not 0 <= sh_deg <= 3:
+        raise ValueError(f"unsupported sh_deg {sh_deg}")
+    k = NUM_COEFFS[sh_deg]
+    basis = sh_basis_rows(dirs[:, 0], dirs[:, 1], dirs[:, 2], k)
+    acc = basis[0][:, None] * sh[:, 0, :]
+    for kk in range(1, k):
+        acc = acc + basis[kk][:, None] * sh[:, kk, :]
+    return torch.clamp(acc + 0.5, min=0.0)
 
 
 def sh_basis_rows(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,

@@ -21,8 +21,10 @@ each step draws one view per rank from the shared ``random.Random`` (every
 rank draws the same indices) and trains them view-data-parallel through
 ``dp_train_step``; densify events run replicated, every rank taking the
 same decisions from the same state, since the kernels are deterministic.
-Only rank 0 logs and checkpoints in ``train``.  A mesh of one rank takes
-the single-device step.
+Only rank 0 logs and writes checkpoints in ``train``.  A mesh of one rank
+takes the single-device step.  ``parallel/gs_trainer.py:GsTrainer`` holds
+shards of the scene instead; the hooks it overrides are ``_round``,
+``capacity``, ``_resize_state``, ``full_scene`` and ``full_opt_state``.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ class Trainer:
         self.groups = _group_views(cameras, images, self.device)
 
         self.num_points = int(scene.num_alive())
-        cap = initial_capacity or _round_capacity(scene.capacity)
+        cap = initial_capacity or self._round(scene.capacity)
         self.scene = scene.pad_to(cap)
         self.opt_state = init_adam_state(self.scene.params())
 
@@ -227,22 +229,31 @@ class Trainer:
             viewport=torch.tensor([mw, mh], dtype=torch.float32,
                                   device=cam.viewport.device))
 
+    def _round(self, n: int) -> int:
+        """The capacity rounding policy (the Gaussian-sharded trainer also
+        makes it divisible by its band count)."""
+        return _round_capacity(n)
+
+    @property
+    def capacity(self) -> int:
+        """The whole scene's padded capacity."""
+        return self.scene.capacity
+
+    def _resize_state(self, capacity: int) -> None:
+        """Pad the scene and the optimizer state to ``capacity`` slots."""
+        self.scene = self.scene.pad_to(capacity)
+        self.opt_state = self.opt_state.pad_to(capacity)
+
     def _grow_capacity(self) -> None:
         """Grow the scene and optimizer capacity when the densify headroom
         is short (the analogue of the reference's buffer swap)."""
         cfg = self.config.densify
         needed = self.num_points + cfg.max_new_points_per_step
         budget = cfg.max_buffer_bytes // 96  # sh-buffer stride analogue
-        if needed > self.scene.capacity and self.scene.capacity < budget:
-            new_cap = _round_capacity(min(int(needed * 1.5), budget))
-            if new_cap > self.scene.capacity:
-                self.scene = self.scene.pad_to(new_cap)
-                self.opt_state = self.opt_state.pad_to(new_cap)
-                self._on_state_resize()
-
-    def _on_state_resize(self) -> None:
-        """Hook after a capacity change (a sharded trainer would re-place
-        its state here)."""
+        if needed > self.capacity and self.capacity < budget:
+            new_cap = self._round(min(int(needed * 1.5), budget))
+            if new_cap > self.capacity:
+                self._resize_state(new_cap)
 
     @torch.no_grad()
     def _run_densify(self, w: int, h: int) -> None:
@@ -311,15 +322,29 @@ class Trainer:
         return nxt if nxt <= s.stop_iterations else None
 
     # ------------------------------------------------------------------
+    def full_scene(self) -> GaussianScene:
+        """The whole scene (a sharded trainer gathers it: every rank must
+        call this)."""
+        return self.scene
+
+    def full_opt_state(self) -> AdamState:
+        """The whole optimizer state (gathered like :meth:`full_scene`)."""
+        return self.opt_state
+
     @torch.no_grad()
     def evaluate(self, max_views: int | None = None,
                  views: tuple[list, list] | None = None,
-                 groups: dict | None = None) -> dict:
+                 groups: dict | None = None,
+                 scene: GaussianScene | None = None) -> dict:
         """Mean PSNR / L1 / SSIM over the first ``max_views`` dataset views
         (all by default).  ``views``: optional (cameras, images) lists to
         evaluate instead of the training set (e.g. a held-out split);
         ``groups``: a ``_group_views`` result of such a split, for callers
-        that evaluate it repeatedly (grouping uploads every image)."""
+        that evaluate it repeatedly (grouping uploads every image);
+        ``scene``: a whole scene to evaluate instead of
+        :meth:`full_scene` (one already gathered)."""
+        if scene is None:
+            scene = self.full_scene()
         if groups is None:
             groups = (self.groups if views is None
                       else _group_views(views[0], views[1], self.device))
@@ -331,7 +356,7 @@ class Trainer:
             take = g["count"] if remaining is None else min(g["count"],
                                                             remaining)
             for i in range(take):
-                pred = render(self.scene, g["cams"][i], w, h, self.settings,
+                pred = render(scene, g["cams"][i], w, h, self.settings,
                               entry_capacity=self._entry_cap()).image
                 m = loss_metrics(pred, g["imgs"][i], self.config.loss)
                 per_view.append(torch.stack(
@@ -356,14 +381,15 @@ class Trainer:
     def render_view(self, index: int) -> torch.Tensor:
         """Render one dataset view at full resolution, (H, W, 3)."""
         (w, h), g, i = self._view(index)
-        return render(self.scene, g["cams"][i], w, h, self.settings).image
+        return render(self.full_scene(), g["cams"][i], w, h,
+                      self.settings).image
 
     @torch.no_grad()
     def visualize_loss(self, index: int) -> torch.Tensor:
         """Per-pixel |dL/dpixel| map of a dataset view (the reference's
         show-loss debug view)."""
         (w, h), g, i = self._view(index)
-        img = render(self.scene, g["cams"][i], w, h, self.settings,
+        img = render(self.full_scene(), g["cams"][i], w, h, self.settings,
                      entry_capacity=self._entry_cap()).image
         return torch.abs(pixel_loss_gradient(img, g["imgs"][i],
                                              self.config.loss))
@@ -384,7 +410,7 @@ class Trainer:
     def resume_from(self, scene: GaussianScene,
                     opt_state: AdamState | None, iteration: int) -> None:
         """Restore training state (e.g. from ``load_checkpoint``)."""
-        cap = _round_capacity(scene.capacity)
+        cap = self._round(scene.capacity)
         self.scene = scene.to(self.device).pad_to(cap)
         if opt_state is not None:
             self.opt_state = opt_state.to(self.device).pad_to(cap)
@@ -416,12 +442,12 @@ class Trainer:
               profile_dir: str | None = None) -> dict:
         """Run ``num_iterations`` steps (default: up to
         ``config.max_iterations``); returns the last step's metrics.  Under
-        a mesh only rank 0 logs and checkpoints.  ``profile_dir``: trace
-        the run with ``torch.profiler`` (the card's kernels too, on CUDA)
-        and write a Chrome trace there."""
-        lead = self.mesh is None or self.mesh.rank == 0
-        if not lead:
-            log_fn, checkpoint_every = None, 0
+        a mesh only rank 0 logs and writes checkpoints (every rank takes
+        part in a checkpoint's gather).  ``profile_dir``: trace the run
+        with ``torch.profiler`` (the card's kernels too, on CUDA) and write
+        a Chrome trace there."""
+        if not self.is_lead:
+            log_fn = None
         prof = None
         if profile_dir:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -440,6 +466,21 @@ class Trainer:
                 prof.export_chrome_trace(os.path.join(
                     profile_dir, f"trace_rank{rank}.json"))
         return {k: float(v) for k, v in self.last_metrics.items()}
+
+    @property
+    def is_lead(self) -> bool:
+        """True on the rank that logs and writes (every process without a
+        mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def write_checkpoint(self, path: str) -> None:
+        """Save the whole state to ``path``.  Every rank calls this: the
+        gather of a sharded trainer runs on all of them, and only the lead
+        rank writes."""
+        from webdgs_tpu_torch.io.checkpoint import save_checkpoint
+        scene, opt_state = self.full_scene(), self.full_opt_state()
+        if self.is_lead:
+            save_checkpoint(path, scene, opt_state, iteration=self.iteration)
 
     def _train_loop(self, num_iterations, log_every, log_fn,
                     checkpoint_every, checkpoint_path) -> None:
@@ -477,8 +518,6 @@ class Trainer:
                        f"({self.iters_per_sec:.1f} it/s)")
             if (checkpoint_every and checkpoint_path
                     and self.iteration % checkpoint_every == 0):
-                from webdgs_tpu_torch.io.checkpoint import save_checkpoint
-                save_checkpoint(checkpoint_path, self.scene,
-                                self.opt_state, iteration=self.iteration)
+                self.write_checkpoint(checkpoint_path)
             if self.iteration >= self.config.max_iterations:
                 break
