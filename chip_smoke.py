@@ -136,7 +136,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
      the logged point count, finite losses, and every kernel launched in
      that process (its report's counts, from 0);
  11. a live-training server over HTTP: /stats shows the iteration advancing,
-     /loss.jpg returns a JPEG, and an upload of the dataset sets it.
+     /loss.jpg returns a JPEG, and an upload of the dataset sets it;
+ 12. bench: ``python -m webdgs_tpu_torch bench`` at bench.py's recipe and
+     on phase 8's checkpoint (``WEBDGS_BENCH_CHECKPOINT``): exit 0, each
+     JSON line printed, finite positive rates, the metric names, and the
+     launches of its timed 20 steps and 20 frames (20 per training kernel,
+     40 for expand and the forward raster);
+ 13. validate: scripts/validate_training_torch.py, 600 iterations at
+     200x152 with densify events at 300 and 400: exit 0 and the held-out
+     PSNR risen.
 It prints one JSON line of per-kernel results, the card line again, and as
 its last line {"ok": true, "device": {...}}.
 """
@@ -185,28 +193,6 @@ ALPHA_OPS_PER_PAIR = 16
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def bench_scene(device, n: int = 100_000):
-    """bench.py's scene: seed 0, random Gaussians, RGB as SH DC."""
-    from webdgs_tpu_torch.core.scene import scene_from_arrays
-    rng = np.random.default_rng(0)
-    quats = rng.normal(0, 1, (n, 4)).astype(np.float32)
-    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
-    return scene_from_arrays(
-        rng.normal(0, 1.5, (n, 3)).astype(np.float32), quats=quats,
-        log_scales=rng.uniform(-4.5, -2.5, (n, 3)).astype(np.float32),
-        opacity_logits=rng.uniform(-1, 3, (n,)).astype(np.float32),
-        colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
-        device=device)
 
 
 def scene_1m(device, n: int = 1_000_000):
@@ -1771,6 +1757,7 @@ def small_event_phase(dev, settings) -> None:
     CPU: importance counts of two views, decide, cap and the transforms
     with one injected numpy noise."""
     import torch
+    from webdgs_tpu_torch.bench import bench_scene
     from webdgs_tpu_torch.core.camera import default_camera
     from webdgs_tpu_torch.ops import densify, importance
     from webdgs_tpu_torch.ops.adam import init_adam_state
@@ -2295,6 +2282,80 @@ def cli_shard_phase(tmp: str, data: str, sparse: str, shard: str,
     return {"launches": launches, "seconds": cli_s}
 
 
+# the bench's launches in its timed window: 20 steps and 20 frames
+BENCH_LAUNCHES = {"expand_fields": 40, "rasterize_tiles": 40,
+                  "tile_loss_tiles": 20, "rasterize_tiles_backward": 20,
+                  "segment_sum_rows": 20, "entry_counts": 0}
+
+
+def bench_phase(ckpt: str) -> dict:
+    """[bench]: ``python -m webdgs_tpu_torch bench`` at bench.py's recipe
+    and on a trained checkpoint (``WEBDGS_BENCH_CHECKPOINT``): exit 0, one
+    JSON line each (printed here on a line of its own), finite positive
+    rates, the metric names, and each kernel's launches in the timed window
+    (``BENCH_LAUNCHES``)."""
+    import torch
+
+    from webdgs_tpu_torch.bench import card_tag
+    card = card_tag(torch.cuda.get_device_name(0))
+    lines = {}
+    for label, extra in (("recipe", {}),
+                         ("checkpoint", {"WEBDGS_BENCH_CHECKPOINT": ckpt})):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("WEBDGS_BENCH_")}
+        env.update(extra)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "webdgs_tpu_torch", "bench"],
+            capture_output=True, text=True, timeout=600, env=env)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"bench ({label}) exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        out = proc.stdout.strip().splitlines()
+        check(len(out) == 1, f"bench ({label}) printed {out}")
+        line = json.loads(out[0])
+        print(f"[bench] {label}: exit 0 in {secs:.1f} s; its line:",
+              flush=True)
+        print(json.dumps(line), flush=True)
+        check(all(math.isfinite(line[k]) and line[k] > 0 for k in (
+            "value", "render_mpix_per_sec_per_chip", "step_ms",
+            "frame_ms")), f"bench ({label}) rates {line}")
+        tag = ("100k_splats" if label == "recipe"
+               else f"trained_{line['splats']}_splats")
+        check(line["metric"] == f"train_iters_per_sec_{tag}_800x600_{card}",
+              f"bench ({label}) metric {line['metric']}")
+        check(line["kernel_launches"] == BENCH_LAUNCHES,
+              f"bench ({label}) launches {line['kernel_launches']}, want "
+              f"{BENCH_LAUNCHES}")
+        lines[label] = line
+    return lines
+
+
+def validate_phase() -> None:
+    """[validate]: scripts/validate_training_torch.py at a size where two
+    densify events fire (iterations 300 and 400): exit 0, the last event
+    at 400, and the held-out PSNR risen."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join("scripts", "validate_training_torch.py"),
+         "--iters", "600", "--views", "8", "--size", "200", "152",
+         "--gt-points", "5000", "--init-points", "1000"],
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"validate_training_torch.py exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    event = json.loads(proc.stdout.split("last densify event:", 1)[1]
+                       .splitlines()[0])
+    check(event["iteration"] == 400 and res["iters"] == 600,
+          f"validate: last event {event}, {res['iters']} iterations")
+    check(res["psnr_holdout_final"] > res["psnr_holdout_init"],
+          f"validate: held-out PSNR did not rise: {res}")
+    print(f"[validate] validate_training_torch.py 600 iterations, 8 views at "
+          f"200x152, 5000 ground-truth / 1000 initial points: exit 0 in "
+          f"{secs:.1f} s; last densify event {event}; {res}", flush=True)
+
+
 def band_loss_check(out, target, w: int, h: int, ntx: int, nty: int, cfg,
                     settings, splits=(2, 3, 4)) -> dict:
     """The band form of the tile-loss kernel at one step's forward tiles:
@@ -2791,11 +2852,12 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     # --- 1. device ---
-    card = card_line()
+    from webdgs_tpu_torch.bench import card_name
+    dev = torch.device("cuda")
+    card = card_name(dev)
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | devices {torch.cuda.device_count()}",
           flush=True)
-    dev = torch.device("cuda")
 
     # --- 2. build ---
     from webdgs_tpu_torch import _build
@@ -2853,6 +2915,7 @@ def main(argv: list[str] | None = None) -> int:
                       flush=True)
 
     import torch.nn.functional as F
+    from webdgs_tpu_torch.bench import bench_scene, entry_capacity
     from webdgs_tpu_torch.config import RenderSettings, quantize_budget
     from webdgs_tpu_torch.core.camera import default_camera
     from webdgs_tpu_torch.ops import binning, rasterize, segsum, tile_loss
@@ -2898,8 +2961,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # --- 3b. the training kernels at the bench training step's inputs ---
     # capacity as bench.py sizes it: 1.2x the observed entries
-    cap = max(-(-demand * 12 // 10 // settings.chunk) * settings.chunk,
-              settings.chunk * 8)
+    cap = entry_capacity(demand, settings.chunk)
     cfg = LossConfig()
     with torch.no_grad():
         tbins = binning.bin_splats(aux, w, h, settings, capacity=cap,
@@ -3262,6 +3324,8 @@ def main(argv: list[str] | None = None) -> int:
         cli_dp_res = cli_shard_phase(tmp, data, sparse, "dp")
         cli_gs_res = cli_shard_phase(tmp, data, sparse, "gs")
         live_server_phase(dev, data, sparse)
+        bench_res = bench_phase(ck)
+    validate_phase()
 
     dlaunch = densify_res["launches"]
     imp = densify_res["importance"]
@@ -3284,6 +3348,8 @@ def main(argv: list[str] | None = None) -> int:
                        for _, fn, name in KERNEL_COUNTERS}
     cli_gs_launches = {name: cli_gs_res["launches"][fn]
                        for _, fn, name in KERNEL_COUNTERS}
+    bench_launches = {name: bench_res["recipe"]["kernel_launches"][fn]
+                      for _, fn, name in KERNEL_COUNTERS}
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, lib_ms,
               **extra):
@@ -3293,7 +3359,8 @@ def main(argv: list[str] | None = None) -> int:
         # launches_gs: 3 gs_train_steps on one rank; launches_gs_trainer:
         # the GsTrainer's 5 steps and 2 events (its per step and per event
         # beside them); launches_cli_dp / launches_cli_gs: the train --shard
-        # dp / gs command's 30 iterations
+        # dp / gs command's 30 iterations; launches_bench: the bench
+        # command's 20 timed steps and 20 frames
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": train_launches.get(name, dlaunch[name]),
@@ -3310,6 +3377,7 @@ def main(argv: list[str] | None = None) -> int:
                 "launches_gs_trainer_per_event":
                     gs_train_res["events"][-1]["launches"][name],
                 "launches_cli_gs": cli_gs_launches[name],
+                "launches_bench": bench_launches[name],
                 **extra}
 
     def expand_reading(r):

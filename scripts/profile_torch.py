@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -36,6 +35,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from webdgs_tpu_torch.bench import (bench_scene,  # noqa: E402
+                                    card_name, entry_capacity)
 from webdgs_tpu_torch.config import (RenderSettings,  # noqa: E402
                                      quantize_budget)
 from webdgs_tpu_torch.core.camera import default_camera  # noqa: E402
@@ -48,18 +49,6 @@ from webdgs_tpu_torch.render.renderer import (render,  # noqa: E402
                                               render_banded)
 from webdgs_tpu_torch.render.viewer import Viewer  # noqa: E402
 from webdgs_tpu_torch.train.step import train_step  # noqa: E402
-
-
-def bench_scene(device, n: int = 100_000):
-    rng = np.random.default_rng(0)
-    quats = rng.normal(0, 1, (n, 4)).astype(np.float32)
-    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
-    return scene_from_arrays(
-        rng.normal(0, 1.5, (n, 3)).astype(np.float32), quats=quats,
-        log_scales=rng.uniform(-4.5, -2.5, (n, 3)).astype(np.float32),
-        opacity_logits=rng.uniform(-1, 3, (n,)).astype(np.float32),
-        colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
-        device=device)
 
 
 def scene_1m(device, n: int = 1_000_000):
@@ -186,11 +175,8 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch.py needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(f"[profile] {card}", flush=True)
     dev = torch.device("cuda")
+    print(f"[profile] {card_name(dev)}", flush=True)
     w, h = 800, 600
     settings = RenderSettings()
     scene = bench_scene(dev)
@@ -204,8 +190,7 @@ def main() -> int:
         res = render(scene, cam, w, h, settings)
     target = res.image
     demand = int(res.binning.expansion_entries)
-    cap = max(-(-demand * 12 // 10 // settings.chunk) * settings.chunk,
-              settings.chunk * 8)
+    cap = entry_capacity(demand, settings.chunk)
     state = {"s": scene, "o": init_adam_state(scene.params())}
 
     def step():

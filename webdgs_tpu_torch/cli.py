@@ -13,6 +13,7 @@
   python -m webdgs_tpu_torch serve  scene.ply --port 8000      # view mode
   python -m webdgs_tpu_torch serve --train --points ... --cameras ... \
       --images ...                       # live training in the browser
+  python -m webdgs_tpu_torch bench       # the headline benchmark (bench.py)
 
 Every command runs on ``--device`` (default ``cuda``) and raises when that
 device is unavailable.  ``train --shard dp`` trains view-data-parallel and
@@ -20,7 +21,8 @@ device is unavailable.  ``train --shard dp`` trains view-data-parallel and
 ranks (``parallel/gs_trainer.py:GsTrainer``), one process per card under
 ``torchrun`` (without a launcher, a world of one); only rank 0 logs and
 writes the checkpoint, the PLY and the report, which hold the whole
-scene.  The benchmark (``bench``) is not ported yet.
+scene.  ``bench`` runs bench.py's recipe (``webdgs_tpu_torch/bench.py``)
+and prints its JSON line.
 """
 
 from __future__ import annotations
@@ -211,16 +213,6 @@ def _lead_print(mesh, line: str) -> None:
         print(line, flush=True)
 
 
-def _kernel_launches() -> dict:
-    """The launch count of every kernel wrapper in this process."""
-    from webdgs_tpu_torch.ops import (expand, importance, rasterize, segsum,
-                                      tile_loss)
-    return {f.__name__: f.kernel_launches for f in (
-        expand.expand_fields, rasterize.rasterize_tiles,
-        tile_loss.tile_loss_tiles, rasterize.rasterize_tiles_backward,
-        segsum.segment_sum_rows, importance.entry_counts)}
-
-
 def cmd_train(args):
     trainer, holdout = _build_trainer(args)
     try:
@@ -243,6 +235,7 @@ def _finish_training(args, trainer, holdout, scene, opt_state) -> None:
     import json
     from webdgs_tpu_torch.io.checkpoint import save_checkpoint
     from webdgs_tpu_torch.io.ply import save_ply
+    from webdgs_tpu_torch.ops import kernel_launches
 
     # persist the model before the evaluation
     if args.out:
@@ -256,7 +249,7 @@ def _finish_training(args, trainer, holdout, scene, opt_state) -> None:
     report = {"iterations": trainer.iteration,
               "points": trainer.num_points,
               "iters_per_sec": round(trainer.iters_per_sec, 2),
-              "kernel_launches": _kernel_launches(),
+              "kernel_launches": kernel_launches(),
               "train": trainer.evaluate(scene=scene)}
     if holdout[0]:
         report["holdout"] = trainer.evaluate(views=holdout, scene=scene)
@@ -331,6 +324,12 @@ def cmd_serve(args):
                  holdout=holdout).serve(port=args.port, host=args.host)
 
 
+def cmd_bench(args):
+    import json
+    from webdgs_tpu_torch.bench import run_bench
+    print(json.dumps(run_bench(args.device)), flush=True)
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         "webdgs_tpu_torch",
@@ -391,6 +390,14 @@ def build_parser():
     _add_train_args(sv, required=False)
     _add_common_render_args(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    b = sub.add_parser("bench", help="run the headline benchmark (bench.py's "
+                       "recipe; WEBDGS_BENCH_SCALE=tiny, "
+                       "WEBDGS_BENCH_CHECKPOINT=ckpt.npz)")
+    b.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; there is no "
+                   "fallback when it is unavailable)")
+    b.set_defaults(fn=cmd_bench)
     return p
 
 
