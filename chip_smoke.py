@@ -283,14 +283,13 @@ def max_rel(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
 
 
-# (module of webdgs_tpu_torch.ops, wrapper, kernel name in the JSON line)
-KERNEL_COUNTERS = (("expand", "expand_fields", "expand_fields"),
-                   ("rasterize", "rasterize_tiles", "rasterize_tiles"),
-                   ("tile_loss", "tile_loss_tiles", "tile_loss"),
-                   ("rasterize", "rasterize_tiles_backward",
-                    "rasterize_tiles_backward"),
-                   ("segsum", "segment_sum_rows", "segment_sum_rows"),
-                   ("importance", "entry_counts", "entry_counts"))
+# (wrapper, kernel name in the JSON line)
+KERNEL_COUNTERS = (("expand_fields", "expand_fields"),
+                   ("rasterize_tiles", "rasterize_tiles"),
+                   ("tile_loss_tiles", "tile_loss"),
+                   ("rasterize_tiles_backward", "rasterize_tiles_backward"),
+                   ("segment_sum_rows", "segment_sum_rows"),
+                   ("entry_counts", "entry_counts"))
 # the kernels each path must launch: a viewer frame, a training step (the
 # densify run, steps and events, launches all six)
 VIEWER_KERNELS = ("expand_fields", "rasterize_tiles")
@@ -298,21 +297,16 @@ TRAIN_KERNELS = VIEWER_KERNELS + ("tile_loss", "rasterize_tiles_backward",
                                   "segment_sum_rows")
 
 
-def _wrappers():
-    import importlib
-    for mod, fn, name in KERNEL_COUNTERS:
-        m = importlib.import_module(f"webdgs_tpu_torch.ops.{mod}")
-        yield getattr(m, fn), name
-
-
 def kernel_counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
-    return {name: fn.kernel_launches for fn, name in _wrappers()}
+    from webdgs_tpu_torch.ops import kernel_launches
+    counts = kernel_launches()
+    return {name: counts[fn] for fn, name in KERNEL_COUNTERS}
 
 
-def reset_kernel_counters() -> None:
-    for fn, _ in _wrappers():
-        fn.kernel_launches = 0
+def launches_since(mark: dict) -> dict:
+    """Each kernel's launches since ``mark``, a :func:`kernel_counters`."""
+    return {k: v - mark[k] for k, v in kernel_counters().items()}
 
 
 def metric_view_inputs(scene, cam, target, mw: int, mh: int,
@@ -1625,13 +1619,13 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     trainer._run_densify = timed_densify
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_kernel_counters()
+    launch_mark = kernel_counters()
     t0 = time.perf_counter()
     for _ in range(4):
         metrics = trainer.step()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = kernel_counters()
+    launches = launches_since(launch_mark)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     check(len(events) == 2, f"expected 2 densify events, got {len(events)}")
     check(launches["entry_counts"] > 0 and launches["segment_sum_rows"] > 0,
@@ -2013,13 +2007,13 @@ def banded_phase(dev, big, settings, size=(8192, 4320),
     viewer.control.position = np.array([0.0, 0.0, -10.0], np.float32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_kernel_counters()
+    launch_mark = kernel_counters()
     frame_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
         img = viewer.render()  # a host image: synchronized
         frame_ms.append(1e3 * (time.perf_counter() - t0))
-    viewer_launches = {k: v for k, v in kernel_counters().items()
+    viewer_launches = {k: v for k, v in launches_since(launch_mark).items()
                        if k in VIEWER_KERNELS}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(v == 3 * bands for v in viewer_launches.values()),
@@ -2044,7 +2038,7 @@ def banded_phase(dev, big, settings, size=(8192, 4320),
                                       return_entries=True)
     for mode in ("gaussian", "pointcloud"):
         frame(mode)  # warm-up
-    reset_kernel_counters()
+    launch_mark = kernel_counters()
     banded_ms = {"gaussian": [], "pointcloud": []}
     outs = {}
     with torch.no_grad():
@@ -2059,7 +2053,7 @@ def banded_phase(dev, big, settings, size=(8192, 4320),
                     torch.cuda.set_sync_debug_mode("default")
                 torch.cuda.synchronize()
                 banded_ms[mode].append(1e3 * (time.perf_counter() - t0))
-    launches = {k: v for k, v in kernel_counters().items()
+    launches = {k: v for k, v in launches_since(launch_mark).items()
                 if k in VIEWER_KERNELS}
     check(all(v == 6 * bands for v in launches.values()),
           f"6 render_banded frames of {bands} bands launched {launches}")
@@ -2153,7 +2147,7 @@ def dp_phase(dev, big, settings, size=(1920, 1080)) -> dict:
         opt0 = init_adam_state(big.params())
         s_cur, o_cur, _ = dp_train_step(big, opt0, cams, targets, mesh,
                                         **kw)  # warm-up
-        reset_kernel_counters()
+        launch_mark = kernel_counters()
         step_ms = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -2162,7 +2156,7 @@ def dp_phase(dev, big, settings, size=(1920, 1080)) -> dict:
                                                 mesh, **kw)
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
-        launches = {k: v for k, v in kernel_counters().items()
+        launches = {k: v for k, v in launches_since(launch_mark).items()
                     if k in TRAIN_KERNELS}
         check(all(v > 0 for v in launches.values()),
               f"a kernel of the dp step did not launch: {launches}")
@@ -2540,7 +2534,7 @@ def gs_phase(dev, big, settings, size=(1920, 1080)) -> dict:
         kw = dict(img_w=W, img_h=H, settings=settings, entry_capacity=cap)
         s_cur, o_cur, _ = gs_train_step(shard, opt0, cam, target, mesh,
                                         **kw)  # warm-up
-        reset_kernel_counters()
+        launch_mark = kernel_counters()
         torch.cuda.reset_peak_memory_stats()
         step_ms = []
         for _ in range(3):
@@ -2550,7 +2544,7 @@ def gs_phase(dev, big, settings, size=(1920, 1080)) -> dict:
                                                 mesh, **kw)
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
-        launches = {k: v for k, v in kernel_counters().items()
+        launches = {k: v for k, v in launches_since(launch_mark).items()
                     if k in TRAIN_KERNELS}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         check(all(v > 0 for v in launches.values()),
@@ -2712,7 +2706,7 @@ def gs_train_phase(dev, s1m, n: int = 1_000_000,
         tr._run_densify = timed_densify
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_kernel_counters()
+        launch_mark = kernel_counters()
         steps, losses = [], []
         for _ in range(5):
             n_ev = len(events)
@@ -2730,7 +2724,7 @@ def gs_train_phase(dev, s1m, n: int = 1_000_000,
                             for k, v in launches.items()}
             steps.append({"ms": ms, "syncs": syncs, "launches": launches})
             losses.append(float(metrics["loss"]))
-        launches = kernel_counters()
+        launches = launches_since(launch_mark)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
         full, fopt = tr.full_scene(), tr.full_opt_state()
@@ -3042,13 +3036,13 @@ def main(argv: list[str] | None = None) -> int:
     # --- 4. the viewer slice: frames through the render kernels ---
     viewer = Viewer(scene, w, h, settings, device="cuda")
     viewer.control.position = np.array([0.0, 0.0, -8.0], np.float32)
-    reset_kernel_counters()
+    launch_mark = kernel_counters()
     frame_s = []
     for _ in range(5):
         t0 = time.perf_counter()
         img = viewer.render()  # returns host numpy: synchronized
         frame_s.append(time.perf_counter() - t0)
-    launches = {k: v for k, v in kernel_counters().items()
+    launches = {k: v for k, v in launches_since(launch_mark).items()
                 if k in VIEWER_KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path did not launch: {launches}")
@@ -3084,7 +3078,7 @@ def main(argv: list[str] | None = None) -> int:
         s_cur, o_cur, _ = train_step(s_cur, o_cur, cam, own, img_w=w,
                                      img_h=h, settings=settings,
                                      entry_capacity=cap)
-    reset_kernel_counters()
+    launch_mark = kernel_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -3093,7 +3087,7 @@ def main(argv: list[str] | None = None) -> int:
                                          entry_capacity=cap)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 20 * 1e3
-    train_launches = {k: v for k, v in kernel_counters().items()
+    train_launches = {k: v for k, v in launches_since(launch_mark).items()
                       if k in TRAIN_KERNELS}
     check(all(v > 0 for v in train_launches.values()),
           f"a kernel of the training path did not launch: {train_launches}")
@@ -3345,11 +3339,11 @@ def main(argv: list[str] | None = None) -> int:
 
     # the train command's report names the wrappers, this line the kernels
     cli_dp_launches = {name: cli_dp_res["launches"][fn]
-                       for _, fn, name in KERNEL_COUNTERS}
+                       for fn, name in KERNEL_COUNTERS}
     cli_gs_launches = {name: cli_gs_res["launches"][fn]
-                       for _, fn, name in KERNEL_COUNTERS}
+                       for fn, name in KERNEL_COUNTERS}
     bench_launches = {name: bench_res["recipe"]["kernel_launches"][fn]
-                      for _, fn, name in KERNEL_COUNTERS}
+                      for fn, name in KERNEL_COUNTERS}
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, lib_ms,
               **extra):

@@ -1,0 +1,11 @@
+"""adam_ms.train: device ms per plain training step of the work the port
+launched inside its ``adam`` span under ``train.step``, from the span
+slice (``span_slice.py``)."""
+
+import span_slice
+
+
+def read(ctx):
+    if ctx.get("kind") != "train":
+        return None
+    return span_slice.step_ms(ctx, "adam")

@@ -21,6 +21,7 @@ from webdgs_tpu.ops import binning as jbin
 from webdgs_tpu.ops import rasterize as jras
 from webdgs_tpu.ops import segsum as jseg
 from webdgs_tpu.ops.projection import project_gaussians as jproject
+from webdgs_tpu_torch.ops import kernel_launches
 from webdgs_tpu_torch.ops import rasterize as tras
 from webdgs_tpu_torch.ops import segsum as tseg
 
@@ -62,10 +63,10 @@ def test_rasterize_vjp_matches_jax(opacity_shift):
     (want,) = vjp(jnp.asarray(g))
 
     a = t_(a16).requires_grad_(True)
-    launches = tras.rasterize_tiles_backward.kernel_launches
+    launches = kernel_launches()["rasterize_tiles_backward"]
     out_t = tras.rasterize_tiles(a, t_(bins.tile_offsets), ntx, nty, st)
     (got,) = torch.autograd.grad(out_t, a, t_(g))
-    assert tras.rasterize_tiles_backward.kernel_launches == launches
+    assert kernel_launches()["rasterize_tiles_backward"] == launches
     np.testing.assert_allclose(np_(out_t)[:, 0:5], np.asarray(out_j)[:, 0:5],
                                rtol=1e-4, atol=3e-4)
     _assert_rows_close(got, want)
@@ -199,12 +200,12 @@ def test_segment_sum_rows_matches_jax(n, e_cap, cols, seed):
     rows[:, total:] = 0
     want = jseg.segment_sum_rows(jnp.asarray(rows), jnp.asarray(ids),
                                  jnp.asarray(counts))
-    launches = tseg.segment_sum_rows.kernel_launches
+    launches = kernel_launches()["segment_sum_rows"]
     # rows already in expansion order: the identity slot map
     got = tseg.segment_sum_rows(t_(rows), t_(counts),
                                 torch.arange(e_cap, dtype=torch.int32),
                                 torch.ones(e_cap, dtype=torch.bool))
-    assert tseg.segment_sum_rows.kernel_launches == launches  # CPU: plain
+    assert kernel_launches()["segment_sum_rows"] == launches  # CPU: plain
     assert got.shape == (n, cols) and got.dtype == torch.float32
     _assert_sums_close(got, want)
 

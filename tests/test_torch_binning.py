@@ -17,6 +17,7 @@ from webdgs_tpu.ops import binning as jbin
 from webdgs_tpu.ops.expand import expand_fields as jexpand
 from webdgs_tpu.ops.projection import project_gaussians as jproject
 from webdgs_tpu_torch.ops import binning as tbin
+from webdgs_tpu_torch.ops import kernel_launches
 from webdgs_tpu_torch.ops.expand import NWORDS, expand_fields
 
 from tests.torch_cases import EXPAND_CASES, crafted_expand_case
@@ -41,10 +42,10 @@ def test_expand_fields_plain_matches_jax(n, e_cap, seed):
     words = rng.integers(-2**31, 2**31 - 1, (NWORDS, n),
                          dtype=np.int64).astype(np.int32)
     jw, jids = jexpand(jnp.asarray(words), jnp.asarray(counts), e_cap)
-    launches = expand_fields.kernel_launches
+    launches = kernel_launches()["expand_fields"]
     tw, tids = expand_fields(torch.tensor(words), torch.tensor(counts),
                              e_cap)
-    assert expand_fields.kernel_launches == launches  # CPU: plain version
+    assert kernel_launches()["expand_fields"] == launches  # CPU: plain version
     assert tw.shape == (NWORDS, e_cap) and tids.shape == (e_cap,)
     assert tw.dtype == tids.dtype == torch.int32
     np.testing.assert_array_equal(np_(tids)[:total],

@@ -15,6 +15,7 @@ import torch
 from webdgs_tpu_torch.config import RenderSettings
 from webdgs_tpu_torch.core.camera import default_camera
 from webdgs_tpu_torch.core.scene import scene_from_arrays
+from webdgs_tpu_torch.ops import kernel_launches
 from webdgs_tpu_torch.ops import rasterize as tras
 from webdgs_tpu_torch.ops.binning import bin_splats
 from webdgs_tpu_torch.ops.expand import (NWORDS, expand_fields,
@@ -61,10 +62,10 @@ def test_expand_kernel_matches_plain(cuda, n, e_cap, seed):
     words = torch.tensor(rng.integers(-2**31, 2**31 - 1, (NWORDS, n),
                                       dtype=np.int64).astype(np.int32))
     counts = torch.tensor(counts)
-    launches = expand_fields.kernel_launches
+    launches = kernel_launches()["expand_fields"]
     got = expand_fields(words.to(cuda), counts.to(cuda), e_cap)
     torch.cuda.synchronize()
-    assert expand_fields.kernel_launches == launches + 1
+    assert kernel_launches()["expand_fields"] == launches + 1
     want = expand_fields_plain(words, counts, e_cap)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -76,11 +77,11 @@ def test_expand_kernel_crafted_cases(cuda, case):
     cases, bit-identical on repeat."""
     words, counts, e_cap = (torch.tensor(x) if isinstance(x, np.ndarray)
                             else x for x in crafted_expand_case(case, 31))
-    launches = expand_fields.kernel_launches
+    launches = kernel_launches()["expand_fields"]
     k1 = expand_fields(words.to(cuda), counts.to(cuda), e_cap)
     k2 = expand_fields(words.to(cuda), counts.to(cuda), e_cap)
     torch.cuda.synchronize()
-    assert expand_fields.kernel_launches == launches + 2
+    assert kernel_launches()["expand_fields"] == launches + 2
     want = expand_fields_plain(words, counts, e_cap)
     for a, b, w in zip(k1, k2, want):
         assert torch.equal(a, b)
@@ -138,12 +139,12 @@ def test_rasterize_kernel_matches_plain(cuda, n, w, h, shift, case):
         off[0] = -5
         off[-3:] = torch.tensor([e_len + 7, e_len + 100, 2 ** 30],
                                 dtype=torch.int32, device=cuda)
-    launches = tras.rasterize_tiles.kernel_launches
+    launches = kernel_launches()["rasterize_tiles"]
     got = tras.rasterize_tiles(a16, off, ntx, nty, s)
     got2 = tras.rasterize_tiles(a16, off, ntx, nty, s)
     bare = tras.rasterize_tiles(a16, off, ntx, nty, s, track_ncontrib=False)
     torch.cuda.synchronize()
-    assert tras.rasterize_tiles.kernel_launches == launches + 3
+    assert kernel_launches()["rasterize_tiles"] == launches + 3
     assert torch.equal(got, got2)  # bit-identical
     # without n_contrib: channel 5 reads 0, the others are unchanged
     assert not bare[:, tras.OUT_NCONTRIB].any()
@@ -200,11 +201,11 @@ def test_tile_loss_kernel_matches_plain(cuda, w, h, bg):
     target = torch.tensor(rng.random((h, w, 3)), dtype=torch.float32,
                           device=cuda)
     cfg = LossConfig()
-    launches = ttl.tile_loss_tiles.kernel_launches
+    launches = kernel_launches()["tile_loss_tiles"]
     dk, sk = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
     dk2, sk2 = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
     torch.cuda.synchronize()
-    assert ttl.tile_loss_tiles.kernel_launches == launches + 2
+    assert kernel_launches()["tile_loss_tiles"] == launches + 2
     assert torch.equal(dk, dk2) and torch.equal(sk, sk2)  # bit-identical
     dp, sp = ttl.tile_loss_gradient_plain(out, target, w, h, ntx, nty, cfg,
                                           s)
@@ -241,11 +242,11 @@ def test_tile_loss_kernel_other_tiles(cuda, tile_w, tile_h):
     w, h = 333, 250
     out, target, ntx, nty, s = _loss_tiles(cuda, w, h, tile_w, tile_h, 14)
     cfg = LossConfig()
-    launches = ttl.tile_loss_tiles.kernel_launches
+    launches = kernel_launches()["tile_loss_tiles"]
     dk, sk = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
     dk2, sk2 = ttl.tile_loss_tiles(out, target, w, h, ntx, nty, cfg, s)
     torch.cuda.synchronize()
-    assert ttl.tile_loss_tiles.kernel_launches == launches + 2
+    assert kernel_launches()["tile_loss_tiles"] == launches + 2
     assert torch.equal(dk, dk2) and torch.equal(sk, sk2)
     dp, sp = ttl.tile_loss_gradient_plain(out, target, w, h, ntx, nty, cfg,
                                           s)
@@ -304,10 +305,10 @@ def test_band_tile_loss_kernel_matches_plain(cuda, frame, n_bands):
             out.cpu().numpy(), ntx, nty, n_bands, s.tile_w, s.tile_h, 5):
         args = [torch.tensor(x).to(cuda) for x in (band, top, bot)] + [
             target, row_base, w, h, ntx, rows, cfg, s]
-        launches = ttl.tile_loss_tiles.kernel_launches
+        launches = kernel_launches()["tile_loss_tiles"]
         dk, sk = ttl.band_tile_loss_gradient(*args)
         torch.cuda.synchronize()
-        assert ttl.tile_loss_tiles.kernel_launches == launches + 1
+        assert kernel_launches()["tile_loss_tiles"] == launches + 1
         dp, sp = ttl.band_tile_loss_gradient_plain(*args)
         assert float((dk - dp).abs().max()) <= 1e-5
         torch.testing.assert_close(sk.sum(0), sp.sum(0), rtol=1e-5, atol=0)
@@ -403,11 +404,11 @@ def test_rasterize_backward_kernel_matches_plain(cuda, n, w, h, shift, case):
     suffix = ((g[:, 0:4] * out[:, 0:4]).sum(1, keepdim=True)
               + g[:, 4:5] * out[:, 4:5])
     gpix5 = torch.cat([g[:, 0:4], suffix], dim=1).contiguous()
-    launches = tras.rasterize_tiles_backward.kernel_launches
+    launches = kernel_launches()["rasterize_tiles_backward"]
     dk = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, s)
     dk2 = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, s)
     torch.cuda.synchronize()
-    assert tras.rasterize_tiles_backward.kernel_launches == launches + 2
+    assert kernel_launches()["rasterize_tiles_backward"] == launches + 2
     assert torch.equal(dk, dk2)  # bit-identical
     dp = tras.rasterize_tiles_backward_plain(a16, off, gpix5, ntx, nty, s)
     assert float(dp[0:9].abs().max()) > 0
@@ -445,11 +446,11 @@ def test_segsum_kernel_matches_plain(cuda, n, e_cap, cols, seed, long_seg,
                                      device=cuda)
     args = (torch.tensor(counts, device=cuda),
             torch.tensor(perm, device=cuda), valid)
-    launches = tseg.segment_sum_rows.kernel_launches
+    launches = kernel_launches()["segment_sum_rows"]
     k1 = tseg.segment_sum_rows(rows, *args)
     k2 = tseg.segment_sum_rows(rows, *args)
     torch.cuda.synchronize()
-    assert tseg.segment_sum_rows.kernel_launches == launches + 2
+    assert kernel_launches()["segment_sum_rows"] == launches + 2
     assert torch.equal(k1, k2)
     p = tseg.segment_sum_rows_plain(rows, *args)
     assert bool(torch.isfinite(k1).all())
@@ -479,11 +480,11 @@ def test_importance_kernel_matches_plain(cuda, n, w, h, threshold):
     pix = torch.stack([flag, tiles[..., tras.OUT_NCONTRIB]], dim=-1)
     pix_tiles = tras.image_to_tiles(pix, ntx, nty, s).contiguous()
     args = (a16, bins.tile_offsets, pix_tiles, ntx, nty, s)
-    launches = timp.entry_counts.kernel_launches
+    launches = kernel_launches()["entry_counts"]
     k1 = timp.entry_counts(*args)
     k2 = timp.entry_counts(*args)
     torch.cuda.synchronize()
-    assert timp.entry_counts.kernel_launches == launches + 2
+    assert kernel_launches()["entry_counts"] == launches + 2
     assert torch.equal(k1, k2)
     p = timp.entry_counts_plain(*args)
     total = int(bins.total_entries)
@@ -577,11 +578,11 @@ def test_importance_kernel_crafted_cases(cuda, case):
     a16, off, pix, ntx, nty = crafted_importance_case(case, seed=21)
     args = [torch.tensor(x).to(cuda) for x in (a16, off, pix)]
     s = RenderSettings()
-    launches = timp.entry_counts.kernel_launches
+    launches = kernel_launches()["entry_counts"]
     k1 = timp.entry_counts(*args, ntx, nty, s)
     k2 = timp.entry_counts(*args, ntx, nty, s)
     torch.cuda.synchronize()
-    assert timp.entry_counts.kernel_launches == launches + 2
+    assert kernel_launches()["entry_counts"] == launches + 2
     assert torch.equal(k1, k2)
     p = timp.entry_counts_plain(*args, ntx, nty, s)
     assert torch.equal(k1, p)

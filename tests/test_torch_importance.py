@@ -24,6 +24,7 @@ from webdgs_tpu.ops.projection import project_gaussians as jproject
 from webdgs_tpu_torch.core.camera import default_camera
 from webdgs_tpu_torch.ops import binning as tbin
 from webdgs_tpu_torch.ops import importance as timp
+from webdgs_tpu_torch.ops import kernel_launches
 from webdgs_tpu_torch.ops import rasterize as tras
 from webdgs_tpu_torch.ops.projection import project_gaussians as tproject
 from webdgs_tpu_torch.render.renderer import render
@@ -88,10 +89,10 @@ def test_entry_counts_plain_matches_jax(n, seed, w, h, threshold):
     a16, bins, pix_tiles, ntx, nty = _jax_view(n, seed, w, h, threshold)
     want = np.asarray(jimp._entry_counts(a16, bins.tile_offsets, pix_tiles,
                                          ntx, nty, jax_settings())[0])
-    launches = timp.entry_counts.kernel_launches
+    launches = kernel_launches()["entry_counts"]
     got = timp.entry_counts(t_(a16), t_(bins.tile_offsets), t_(pix_tiles),
                             ntx, nty, torch_settings())
-    assert timp.entry_counts.kernel_launches == launches  # CPU: plain
+    assert kernel_launches()["entry_counts"] == launches  # CPU: plain
     assert got.shape == (bins.capacity,) and got.dtype == torch.float32
     got = np_(got)
     total = int(bins.total_entries)

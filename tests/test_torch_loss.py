@@ -20,6 +20,7 @@ from webdgs_tpu.ops import loss as jloss
 from webdgs_tpu.ops import rasterize as jras
 from webdgs_tpu.ops import tile_loss as jtl
 from webdgs_tpu_torch.ops import adam as tadam
+from webdgs_tpu_torch.ops import kernel_launches
 from webdgs_tpu_torch.ops import loss as tloss
 from webdgs_tpu_torch.ops import rasterize as tras
 from webdgs_tpu_torch.ops import tile_loss as ttl
@@ -133,10 +134,10 @@ def _check_tile_loss(img_w, img_h, bg, tile_w, tile_h):
     cfg_t, cfg_j = tloss.LossConfig(), jloss.LossConfig()
     assert ttl.supports_tile_loss(img_w, img_h, st)
 
-    launches = ttl.tile_loss_tiles.kernel_launches
+    launches = kernel_launches()["tile_loss_tiles"]
     dpix, met = ttl.tile_loss_gradient(t_(out), t_(target), img_w, img_h,
                                        ntx, nty, cfg_t, st)
-    assert ttl.tile_loss_tiles.kernel_launches == launches  # CPU: plain
+    assert kernel_launches()["tile_loss_tiles"] == launches  # CPU: plain
     dj, mj = jtl.tile_loss_gradient(jnp.asarray(out), jnp.asarray(target),
                                     img_w, img_h, ntx, nty, cfg_j, sj)
     np.testing.assert_allclose(np_(dpix), np.asarray(dj), rtol=1e-5,

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from webdgs_tpu.ops import binning as jbin
 from webdgs_tpu.ops import rasterize as jras
 from webdgs_tpu.ops.projection import project_gaussians as jproject
+from webdgs_tpu_torch.ops import kernel_launches
 from webdgs_tpu_torch.ops import rasterize as tras
 from webdgs_tpu_torch.ops.rasterize import rasterize_tiles
 
@@ -50,10 +51,10 @@ def test_rasterize_plain_matches_jax_and_oracle(n, seed, w, h, shift):
                                             opacity_shift=shift)
     want = jras.rasterize_tiles(a16, bins.tile_offsets, ntx, nty,
                                 jax_settings())
-    launches = rasterize_tiles.kernel_launches
+    launches = kernel_launches()["rasterize_tiles"]
     got = rasterize_tiles(t_(a16), t_(bins.tile_offsets), ntx, nty,
                           torch_settings())
-    assert rasterize_tiles.kernel_launches == launches  # CPU: plain
+    assert kernel_launches()["rasterize_tiles"] == launches  # CPU: plain
     assert got.shape == (ntx * nty, tras.NUM_OUT, 512)
     assert got.dtype == torch.float32
     assert_tiles_close(got, want)

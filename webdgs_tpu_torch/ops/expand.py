@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from webdgs_tpu_torch import _build
+from webdgs_tpu_torch import _build, trace
 
 NWORDS = 5  # per-Gaussian binning words selected per entry
 
@@ -76,7 +76,7 @@ def _expand_fields_cuda(word_stack, gauss_counts, e_cap):
             word_stack.data_ptr(), cum_incl.data_ptr(), n, e_cap,
             out_words.data_ptr(), out_ids.data_ptr(), stream)
     _build.check(err, "expand_fields")
-    expand_fields.kernel_launches += 1
+    trace.count("launches.expand_fields")
     return out_words, out_ids
 
 
@@ -88,13 +88,11 @@ def expand_fields(word_stack: torch.Tensor, gauss_counts: torch.Tensor,
     i32 entries per Gaussian (post-drop, summing to at most ``e_cap``).
     Returns (words (5, E) i32, ids (E,) i32): per-entry words and monotone
     Gaussian ids in expansion order; slots past the total hold zeros.
-    ``expand_fields.kernel_launches`` counts the CUDA kernel's launches."""
+    ``kernel_launches()["expand_fields"]`` counts the CUDA kernel's
+    launches."""
     _check_inputs(word_stack, gauss_counts, e_cap)
     if word_stack.device.type == "cpu":
         return expand_fields_plain(word_stack, gauss_counts, e_cap)
     if word_stack.device.type != "cuda":
         raise ValueError(f"unsupported device {word_stack.device}")
     return _expand_fields_cuda(word_stack, gauss_counts, e_cap)
-
-
-expand_fields.kernel_launches = 0

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from webdgs_tpu_torch import _build
+from webdgs_tpu_torch import _build, trace
 from webdgs_tpu_torch.config import RenderSettings
 from webdgs_tpu_torch.core.camera import Camera
 from webdgs_tpu_torch.ops import binning as binning_ops
@@ -149,7 +149,7 @@ def _entry_counts_cuda(attrs16, tile_offsets, pix_tiles, ntx, nty,
             settings.tile_h, settings.alpha_min, settings.alpha_max,
             out.data_ptr(), stream)
     _build.check(err, "entry_counts")
-    entry_counts.kernel_launches += 1
+    trace.count("launches.entry_counts")
     return out
 
 
@@ -162,7 +162,7 @@ def entry_counts(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
     attrs16: (16, E) packed entry rows and tile_offsets (T+1,) i32, as the
     forward rasterizer took them; pix_tiles: (T, P, 2) float32 per-pixel
     (flag, n_contrib) in the :func:`image_to_tiles` layout.
-    ``entry_counts.kernel_launches`` counts the CUDA kernel's launches."""
+    ``kernel_launches()["entry_counts"]`` counts the CUDA kernel's launches."""
     _check_inputs(attrs16, tile_offsets, pix_tiles, num_tiles_x,
                   num_tiles_y, settings)
     if attrs16.device.type == "cpu":
@@ -172,9 +172,6 @@ def entry_counts(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
         raise ValueError(f"unsupported device {attrs16.device}")
     return _entry_counts_cuda(attrs16, tile_offsets, pix_tiles, num_tiles_x,
                               num_tiles_y, settings)
-
-
-entry_counts.kernel_launches = 0
 
 
 @torch.no_grad()

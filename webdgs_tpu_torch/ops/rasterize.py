@@ -36,7 +36,7 @@ import math
 
 import torch
 
-from webdgs_tpu_torch import _build
+from webdgs_tpu_torch import _build, trace
 from webdgs_tpu_torch.config import RenderSettings
 from webdgs_tpu_torch.ops.segsum import segment_reduce_entries
 
@@ -221,7 +221,7 @@ def _rasterize_tiles_cuda(attrs16, tile_offsets, ntx, nty, settings,
             math.log(settings.t_threshold), int(track_ncontrib),
             out.data_ptr(), order.data_ptr(), stream)
     _build.check(err, "rasterize_tiles")
-    rasterize_tiles.kernel_launches += 1
+    trace.count("launches.rasterize_tiles")
     return out
 
 
@@ -271,15 +271,12 @@ def rasterize_tiles(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
     respect to ``attrs16``.  Tile ranges past [0, E] are clamped (by the
     kernels and the plain versions alike), so the offsets are never read
     back to the host: nothing here waits for the device.
-    ``rasterize_tiles.kernel_launches`` counts the forward kernel's
+    ``kernel_launches()["rasterize_tiles"]`` counts the forward kernel's
     launches.
     """
     _check_inputs(attrs16, tile_offsets, num_tiles_x, num_tiles_y, settings)
     return _RasterizeTiles.apply(attrs16, tile_offsets, num_tiles_x,
                                  num_tiles_y, settings, track_ncontrib)
-
-
-rasterize_tiles.kernel_launches = 0
 
 
 def _check_gpix(gpix5, n_tiles, settings):
@@ -400,7 +397,7 @@ def _rasterize_tiles_backward_cuda(attrs16, tile_offsets, gpix5, ntx, nty,
             math.log(settings.t_threshold), d_attrs.data_ptr(),
             order.data_ptr(), stream)
     _build.check(err, "rasterize_tiles_backward")
-    rasterize_tiles_backward.kernel_launches += 1
+    trace.count("launches.rasterize_tiles_backward")
     return d_attrs
 
 
@@ -417,8 +414,8 @@ def rasterize_tiles_backward(attrs16: torch.Tensor,
     the per-pixel suffix term in channel GPIX_SUFFIX.  Tile ranges past
     [0, E] are clamped (by the kernel and the plain version alike), so the
     offsets are never read back to the host: nothing here waits for the
-    device.  ``rasterize_tiles_backward.kernel_launches`` counts the CUDA
-    kernel's launches."""
+    device.  ``kernel_launches()["rasterize_tiles_backward"]`` counts
+    the CUDA kernel's launches."""
     _check_inputs(attrs16, tile_offsets, num_tiles_x, num_tiles_y, settings)
     _check_gpix(gpix5, num_tiles_x * num_tiles_y, settings)
     if gpix5.device != attrs16.device:
@@ -431,9 +428,6 @@ def rasterize_tiles_backward(attrs16: torch.Tensor,
         raise ValueError(f"unsupported device {attrs16.device}")
     return _rasterize_tiles_backward_cuda(attrs16, tile_offsets, gpix5,
                                           num_tiles_x, num_tiles_y, settings)
-
-
-rasterize_tiles_backward.kernel_launches = 0
 
 
 def _pack_per_gauss(attrs) -> torch.Tensor:

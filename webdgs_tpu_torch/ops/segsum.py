@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from webdgs_tpu_torch import _build
+from webdgs_tpu_torch import _build, trace
 
 # Gaussians per block of the kernel's count scan (csrc/segsum.cu kScan)
 SCAN_BLOCK = 1024
@@ -118,7 +118,7 @@ def _segment_sum_rows_cuda(rows_cm, gauss_counts, entry_source, slot_valid):
         # (a few microseconds of host time per call)
         torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "segment_sum_rows")
-    segment_sum_rows.kernel_launches += 1
+    trace.count("launches.segment_sum_rows")
     return out
 
 
@@ -146,14 +146,12 @@ def segment_sum_rows(rows_cm: torch.Tensor, gauss_counts: torch.Tensor,
     of [0, total); slot_valid: (L,) bool.  Returns (N, C) f32.  Raises
     when the total exceeds L or entry_source is not such a permutation
     (this check reads the device back).
-    ``segment_sum_rows.kernel_launches`` counts the CUDA kernel's launches.
+    ``kernel_launches()["segment_sum_rows"]`` counts the CUDA kernel's
+    launches.
     """
     _check_inputs(rows_cm, gauss_counts, entry_source, slot_valid)
     _check_values(gauss_counts, entry_source)
     return _segment_sum(rows_cm, gauss_counts, entry_source, slot_valid)
-
-
-segment_sum_rows.kernel_launches = 0
 
 
 def inverse_permutation(entry_source: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from webdgs_tpu_torch import _build
+from webdgs_tpu_torch import _build, trace
 from webdgs_tpu_torch.config import RenderSettings
 from webdgs_tpu_torch.ops.loss import LossConfig
 from webdgs_tpu_torch.ops.rasterize import NUM_OUT, OUT_T
@@ -228,7 +228,7 @@ def _band_tile_loss_cuda(out, halo_top, halo_bot, target, row_base, img_w,
             cfg.lambda_dssim, cfg.c1, cfg.c2, bg[0], bg[1], bg[2],
             dpix.data_ptr(), sums.data_ptr(), stream)
     _build.check(err, "tile_loss_gradient")
-    tile_loss_tiles.kernel_launches += 1
+    trace.count("launches.tile_loss_tiles")
     return dpix, sums
 
 
@@ -255,7 +255,7 @@ def band_tile_loss_gradient(out: torch.Tensor, halo_top: torch.Tensor,
     slices are never read (the edge clamps stay inside [0, img_h)), so any
     values do; tiles wholly below the frame (padding rows) get zero dpix
     and sums.  Needs ``tile_h >= 2``.  The kernel launches count in
-    ``tile_loss_tiles.kernel_launches``."""
+    ``kernel_launches()["tile_loss_tiles"]``."""
     _check_band(out, halo_top, halo_bot, target, row_base, img_w, img_h,
                 ntx, rows, settings)
     if out.device.type == "cpu":
@@ -272,7 +272,7 @@ def tile_loss_tiles(out: torch.Tensor, target: torch.Tensor, img_w: int,
                     img_h: int, ntx: int, nty: int, cfg: LossConfig,
                     settings: RenderSettings):
     """The kernel's function on the whole frame: (dpix (T, NUM_OUT, P),
-    per-tile sums (T, NUM_SUMS)).  ``tile_loss_tiles.kernel_launches``
+    per-tile sums (T, NUM_SUMS)).  ``kernel_launches()["tile_loss_tiles"]``
     counts the CUDA kernel's launches (the band form's too)."""
     _check_inputs(out, target, img_w, img_h, ntx, nty, settings)
     if nty * settings.tile_h < img_h:
@@ -284,9 +284,6 @@ def tile_loss_tiles(out: torch.Tensor, target: torch.Tensor, img_w: int,
         raise ValueError(f"unsupported device {out.device}")
     return _tile_loss_cuda(out, target, img_w, img_h, ntx, nty, cfg,
                            settings)
-
-
-tile_loss_tiles.kernel_launches = 0
 
 
 def tile_loss_gradient(out: torch.Tensor, target: torch.Tensor, img_w: int,

@@ -44,13 +44,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from webdgs_tpu_torch import trace
 from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
                                      quantize_budget)
 from webdgs_tpu_torch.core.camera import Camera
@@ -282,39 +282,43 @@ def gs_densify_event(scene: GaussianScene, opt_state: AdamState,
     n_glob = n_loc * d
     lo = b * n_loc
 
-    counts = sharded_importance_counts(
-        gather_scene(scene, mesh), cameras, targets, mesh, mw=mw, mh=mh,
-        threshold=cfg.metric_threshold, settings=settings)
-    cnt, act = decide(scene, counts[lo:lo + n_loc], cfg)
-    per_shard = _gather_rows(torch.stack([scene.alive.sum(),
-                                          cnt.sum()])[None], mesh)
-    in_alive = per_shard[:, 0].sum().to(torch.int32)
-    totals = per_shard[:, 1]
-    max_out = torch.clamp(in_alive + cfg.max_new_points_per_step, max=n_glob)
-    cnt, act, _ = cap_counts(cnt, act, max_out,
-                             base_offset=(torch.cumsum(totals, 0)
-                                          - totals)[b])
-    # the shard's slot cap: binds only when the shards are out of balance
-    # near full capacity (the single-device event has no such cap)
-    cnt, act, total_l = cap_counts(cnt, act, n_loc)
+    with trace.span("densify.importance"):
+        counts = sharded_importance_counts(
+            gather_scene(scene, mesh), cameras, targets, mesh, mw=mw, mh=mh,
+            threshold=cfg.metric_threshold, settings=settings)
+    with trace.span("densify.prune"):
+        cnt, act = decide(scene, counts[lo:lo + n_loc], cfg)
+        per_shard = _gather_rows(torch.stack([scene.alive.sum(),
+                                              cnt.sum()])[None], mesh)
+        in_alive = per_shard[:, 0].sum().to(torch.int32)
+        totals = per_shard[:, 1]
+        max_out = torch.clamp(in_alive + cfg.max_new_points_per_step,
+                              max=n_glob)
+        cnt, act, _ = cap_counts(cnt, act, max_out,
+                                 base_offset=(torch.cumsum(totals, 0)
+                                              - totals)[b])
+        # the shard's slot cap: binds only when the shards are out of
+        # balance near full capacity (the single-device event has no such
+        # cap)
+        cnt, act, total_l = cap_counts(cnt, act, n_loc)
 
-    # looked up at call time, so a caller can replace the noise
-    jitter_u, split_d = densify_ops.densify_rng(generator, n_glob)
-    new_params, new_opt, valid_out = compact_transform(
-        scene.params(), opt_state, cnt, act, total_l,
-        jitter_u[lo:lo + n_loc], split_d[lo:lo + n_loc])
-    live = scene.alive
-    per = _gather_rows(torch.stack([
-        total_l.to(torch.int64), ((act == ACTION_CLONE) & live).sum(),
-        ((act == ACTION_SPLIT) & live).sum(),
-        ((act == ACTION_PRUNE) & live).sum()])[None], mesh)
-    tot = per.sum(dim=0)
-    return GsDensifyResult(
-        scene=dataclasses.replace(scene.with_params(new_params),
-                                  alive=valid_out),
-        opt_state=new_opt, out_total=tot[0], in_alive=in_alive,
-        n_cloned=tot[1], n_split=tot[2], n_pruned=tot[3],
-        shard_totals=per[:, 0])
+        # looked up at call time, so a caller can replace the noise
+        jitter_u, split_d = densify_ops.densify_rng(generator, n_glob)
+        new_params, new_opt, valid_out = compact_transform(
+            scene.params(), opt_state, cnt, act, total_l,
+            jitter_u[lo:lo + n_loc], split_d[lo:lo + n_loc])
+        live = scene.alive
+        per = _gather_rows(torch.stack([
+            total_l.to(torch.int64), ((act == ACTION_CLONE) & live).sum(),
+            ((act == ACTION_SPLIT) & live).sum(),
+            ((act == ACTION_PRUNE) & live).sum()])[None], mesh)
+        tot = per.sum(dim=0)
+        return GsDensifyResult(
+            scene=dataclasses.replace(scene.with_params(new_params),
+                                      alive=valid_out),
+            opt_state=new_opt, out_total=tot[0], in_alive=in_alive,
+            n_cloned=tot[1], n_split=tot[2], n_pruned=tot[3],
+            shard_totals=per[:, 0])
 
 
 def _own_shard(x, mesh: Mesh):
@@ -400,28 +404,29 @@ class GsTrainer(Trainer):
     def step(self) -> dict:
         """One training iteration: 1 view (a dp x band mesh: one per mesh
         row) drawn from the shared ``random.Random``."""
-        t0 = time.perf_counter()
-        (w, h), g = self._pick_group()
-        if self.mesh.shape is not None:
-            idxs = [self.rng.randrange(g["count"])
-                    for _ in range(self.n_step_views)]
-            cam = [g["cams"][i] for i in idxs]
-            target = [g["imgs"][i] for i in idxs]
-        else:
-            i = self.rng.randrange(g["count"])
-            cam, target = g["cams"][i], g["imgs"][i]
-        self.scene, self.opt_state, metrics = gs_train_step(
-            self.scene, self.opt_state, cam, target, self.mesh, img_w=w,
-            img_h=h, loss_cfg=self.config.loss, hp=self.config.adam,
-            settings=self.settings, send_capacity=self._gs_send_cap,
-            entry_capacity=self._gs_entry_cap,
-            parity_sh=not self.config.adam.full_sh)
-        self.iteration += 1
-        self._maybe_adapt_gs_caps(metrics)
-        if self.config.densify.schedule.should_densify(self.iteration):
-            self._run_densify(w, h)
-        self._finish_step(t0, metrics)
-        return metrics
+        with trace.span("train.step"):
+            self._gauge_slots()
+            (w, h), g = self._pick_group()
+            if self.mesh.shape is not None:
+                idxs = [self.rng.randrange(g["count"])
+                        for _ in range(self.n_step_views)]
+                cam = [g["cams"][i] for i in idxs]
+                target = [g["imgs"][i] for i in idxs]
+            else:
+                i = self.rng.randrange(g["count"])
+                cam, target = g["cams"][i], g["imgs"][i]
+            self.scene, self.opt_state, metrics = gs_train_step(
+                self.scene, self.opt_state, cam, target, self.mesh, img_w=w,
+                img_h=h, loss_cfg=self.config.loss, hp=self.config.adam,
+                settings=self.settings, send_capacity=self._gs_send_cap,
+                entry_capacity=self._gs_entry_cap,
+                parity_sh=not self.config.adam.full_sh)
+            self.iteration += 1
+            self._maybe_adapt_gs_caps(metrics)
+            if self.config.densify.schedule.should_densify(self.iteration):
+                self._run_densify(w, h)
+            self._finish_step(metrics)
+            return metrics
 
     def _maybe_adapt_gs_caps(self, metrics) -> None:
         """The per-rank entry capacity and the per-band send budget from
@@ -430,8 +435,9 @@ class GsTrainer(Trainer):
         if self.iteration != 1 and self.iteration % self.ENTRY_CAP_INTERVAL:
             return
         chunk = self.settings.chunk
-        e_obs, s_obs = torch.stack([metrics["entries_local_max"],
-                                    metrics["send_max"]]).tolist()
+        with trace.span("wait.entry_cap"):
+            e_obs, s_obs = torch.stack([metrics["entries_local_max"],
+                                        metrics["send_max"]]).tolist()
         self._entry_cap_peak = max(float(e_obs), self.ENTRY_CAP_DECAY
                                    * self._entry_cap_peak)
         self._send_peak = max(float(s_obs),
@@ -447,14 +453,14 @@ class GsTrainer(Trainer):
         if cur is None or want_s > cur or want_s < cur // 2:
             self._gs_send_cap = want_s
 
-    @torch.no_grad()
-    def _run_densify(self, w: int, h: int) -> None:
+    def _densify_event(self, w: int, h: int) -> None:
         cfg = self.config.densify
         g = self.groups[(w, h)]
         downscale = max(1, int(cfg.metric_downscale))
         mw, mh = max(1, w // downscale), max(1, h // downscale)
 
-        self._grow_capacity()
+        with trace.span("densify.grow"):
+            self._grow_capacity()
         self.scene, self.opt_state = rebalance_shards(
             self.scene, self.opt_state, self.mesh, self._shard_alive)
         self._shard_alive = balanced_counts(self.num_points, self.d_band)
@@ -468,10 +474,11 @@ class GsTrainer(Trainer):
             mw=mw, mh=mh, cfg=cfg, settings=self.settings)
 
         # the event's one read: its counts and each shard's output count
-        vals = torch.cat([torch.stack([
-            result.out_total, result.in_alive, result.n_cloned,
-            result.n_split, result.n_pruned]).to(torch.int64),
-            result.shard_totals]).tolist()
+        with trace.span("wait.event_counts"):
+            vals = torch.cat([torch.stack([
+                result.out_total, result.in_alive, result.n_cloned,
+                result.n_split, result.n_pruned]).to(torch.int64),
+                result.shard_totals]).tolist()
         out_total, in_alive, cloned, split, pruned = vals[:5]
         self.last_densify_event = {
             "iteration": self.iteration, "in": in_alive, "out": out_total,

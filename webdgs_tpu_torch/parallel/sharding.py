@@ -56,8 +56,8 @@ from webdgs_tpu_torch.ops.tile_loss import (band_tile_loss_gradient,
                                             halo_slices, metrics_from_sums,
                                             supports_tile_loss)
 from webdgs_tpu_torch.render.renderer import _render_band
-from webdgs_tpu_torch.train.step import (TrainStepResult, _apply_grad_parity,
-                                         _param_grads, _project, _vjp,
+from webdgs_tpu_torch.train.step import (TrainStepResult, _project,
+                                         _project_vjp, _vjp,
                                          compute_param_grads,
                                          compute_param_grads_tiled)
 
@@ -698,8 +698,7 @@ def gs_train_step(scene: GaussianScene, opt_state: AdamState, camera,
         dv = torch.where(row_valid, diff_ext[own], 0.0)
         ds_own = torch.where(row_valid, (1.0 - sm_ext[own]) * 0.5, 0.0)
         parts = torch.stack([dv.abs().sum(), (dv * dv).sum(), ds_own.sum()])
-    d_params = _param_grads(params, attrs, d_attrs)
-    d_params = _apply_grad_parity(d_params, d_attrs, aux, params, parity_sh)
+    d_params = _project_vjp(params, attrs, d_attrs, aux, parity_sh)
 
     # two collectives over the band group: the loss partials with the
     # counts (float64 holds both exactly), then the maxima

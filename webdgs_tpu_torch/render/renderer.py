@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from webdgs_tpu_torch import trace
 from webdgs_tpu_torch.config import DEFAULT_SETTINGS, RenderSettings
 from webdgs_tpu_torch.core.camera import Camera
 from webdgs_tpu_torch.core.scene import GaussianScene
@@ -49,14 +50,17 @@ def render_from_attrs(attrs: SplatAttrs, aux: SplatAux, img_w: int,
     sum, and the n_contrib channel, which only the importance replay
     reads, is not tracked."""
     ntx, nty = binning_ops.tile_grid(img_w, img_h, settings)
-    bins = binning_ops.bin_splats(aux, img_w, img_h, settings,
-                                  capacity=entry_capacity,
-                                  with_source=for_grad, attrs=attrs)
-    attrs16 = raster_ops.pack_entry_attrs(
-        attrs, bins.entry_gauss, bins.entry_valid,
-        entry_source=bins.entry_source, gauss_counts=bins.gauss_counts)
-    out = raster_ops.rasterize_tiles(attrs16, bins.tile_offsets, ntx, nty,
-                                     settings, track_ncontrib=not for_grad)
+    with trace.span("bin"):
+        bins = binning_ops.bin_splats(aux, img_w, img_h, settings,
+                                      capacity=entry_capacity,
+                                      with_source=for_grad, attrs=attrs)
+    with trace.span("raster"):
+        attrs16 = raster_ops.pack_entry_attrs(
+            attrs, bins.entry_gauss, bins.entry_valid,
+            entry_source=bins.entry_source, gauss_counts=bins.gauss_counts)
+        out = raster_ops.rasterize_tiles(attrs16, bins.tile_offsets, ntx,
+                                         nty, settings,
+                                         track_ncontrib=not for_grad)
     return out, bins
 
 
@@ -89,9 +93,10 @@ def render_points(scene: GaussianScene, camera: Camera, img_w: int,
                   gaussian_scaling: float | None = None) -> torch.Tensor:
     """Point-cloud debug mode: yellow dots of ``point_size_px`` within each
     splat's extent box; returns the (H, W, 3) composited image."""
-    attrs, aux = project_gaussians(scene.params(), scene.alive, camera,
-                                   img_w, img_h, scene.sh_deg, settings,
-                                   gaussian_scaling=gaussian_scaling)
+    with trace.span("project"):
+        attrs, aux = project_gaussians(scene.params(), scene.alive, camera,
+                                       img_w, img_h, scene.sh_deg, settings,
+                                       gaussian_scaling=gaussian_scaling)
     point_attrs = pointify_attrs(attrs, point_size_px, settings)
     out, _ = render_from_attrs(point_attrs, aux, img_w, img_h, settings)
     ntx, nty = binning_ops.tile_grid(img_w, img_h, settings)
@@ -103,9 +108,10 @@ def render(scene: GaussianScene, camera: Camera, img_w: int, img_h: int,
            settings: RenderSettings = DEFAULT_SETTINGS,
            entry_capacity: int | None = None,
            gaussian_scaling: float | None = None) -> RenderResult:
-    attrs, aux = project_gaussians(scene.params(), scene.alive, camera,
-                                   img_w, img_h, scene.sh_deg, settings,
-                                   gaussian_scaling=gaussian_scaling)
+    with trace.span("project"):
+        attrs, aux = project_gaussians(scene.params(), scene.alive, camera,
+                                       img_w, img_h, scene.sh_deg, settings,
+                                       gaussian_scaling=gaussian_scaling)
     out, bins = render_from_attrs(attrs, aux, img_w, img_h, settings,
                                   entry_capacity)
     ntx, nty = binning_ops.tile_grid(img_w, img_h, settings)
@@ -128,9 +134,10 @@ def _project_frame(scene: GaussianScene, camera: Camera, img_w: int,
     """The whole frame's projection, run once per banded frame (and
     pointified in pointcloud mode); the bands only restrict, shift, bin
     and rasterize."""
-    attrs, aux = project_gaussians(scene.params(), scene.alive, camera,
-                                   img_w, img_h, scene.sh_deg, settings,
-                                   gaussian_scaling=gaussian_scaling)
+    with trace.span("project"):
+        attrs, aux = project_gaussians(scene.params(), scene.alive, camera,
+                                       img_w, img_h, scene.sh_deg, settings,
+                                       gaussian_scaling=gaussian_scaling)
     if pointcloud:
         attrs = pointify_attrs(attrs, point_size_px, settings)
     return attrs, aux

@@ -15,6 +15,7 @@ import os
 import numpy as np
 import torch
 
+from webdgs_tpu_torch import trace
 from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
                                      quantize_budget)
 from webdgs_tpu_torch.core.camera import Camera, CameraData, make_camera
@@ -67,6 +68,11 @@ def _frame_center_radius(scene: GaussianScene) -> tuple[np.ndarray, float]:
     radius = float(np.percentile(
         np.linalg.norm(pts - center, axis=1), 90) * 2.5 + 1e-3)
     return center, radius
+
+
+def _host_copy(image: torch.Tensor) -> np.ndarray:
+    with trace.span("view.host_copy"):
+        return image.cpu().numpy()
 
 
 class Viewer:
@@ -134,6 +140,10 @@ class Viewer:
     def render(self, downscale: int = 1) -> np.ndarray:
         """Render a frame as an (H, W, 3) numpy array; ``downscale`` > 1
         renders at a reduced viewport (same fov)."""
+        with trace.span("view.frame"):
+            return self._render(downscale)
+
+    def _render(self, downscale: int) -> np.ndarray:
         w = max(1, self.width // downscale)
         h = max(1, self.height // downscale)
         cam = self.camera(w, h)
@@ -146,11 +156,11 @@ class Viewer:
                     self.scene, cam, w, h, self.settings,
                     point_size_px=self.point_size_px,
                     gaussian_scaling=self.gaussian_scaling)
-                return img.cpu().numpy()
+                return _host_copy(img)
             res = render(self.scene, cam, w, h, self.settings,
                          entry_capacity=self._entry_cap,
                          gaussian_scaling=self.gaussian_scaling)
-            image = res.image.cpu().numpy()
+            image = _host_copy(res.image)
         # the pre-drop demand: total_entries saturates at the capacity
         self.entry_demand = int(res.binning.expansion_entries)
         if downscale == 1:
@@ -169,7 +179,7 @@ class Viewer:
                 gaussian_scaling=self.gaussian_scaling,
                 mode=self.render_mode, point_size_px=self.point_size_px,
                 return_entries=True)
-            image = img.cpu().numpy()
+            image = _host_copy(img)
         if observed is not None:
             observed = int(observed)
             if self.render_mode == "gaussian":

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from webdgs_tpu_torch import trace
 from webdgs_tpu_torch.config import DEFAULT_SETTINGS, RenderSettings
 from webdgs_tpu_torch.core.camera import Camera
 from webdgs_tpu_torch.core.scene import GaussianScene
@@ -41,21 +42,25 @@ class TrainStepResult(NamedTuple):
 def _project(scene, camera, img_w, img_h, settings, parity_sh):
     """Stage-2 graph: parameter leaves -> SplatAttrs, plus stage-1 leaves
     (detached copies of the attributes that require grad)."""
-    params = {k: v.detach().requires_grad_(True)
-              for k, v in scene.params().items()}
-    attrs, aux = project_gaussians(params, scene.alive, camera, img_w, img_h,
-                                   scene.sh_deg, settings,
-                                   detach_color=parity_sh)
-    leaves = SplatAttrs(*(a.detach().requires_grad_(True) for a in attrs))
+    with trace.span("project"):
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in scene.params().items()}
+        attrs, aux = project_gaussians(params, scene.alive, camera, img_w,
+                                       img_h, scene.sh_deg, settings,
+                                       detach_color=parity_sh)
+        leaves = SplatAttrs(*(a.detach().requires_grad_(True)
+                              for a in attrs))
     return params, attrs, leaves, aux
 
 
 def _vjp(outputs, inputs, cotangent):
-    """Cotangents of ``inputs`` (zeros where unused) for one output."""
-    grads = torch.autograd.grad(outputs, inputs, grad_outputs=cotangent,
-                                allow_unused=True)
-    return [torch.zeros_like(x) if g is None else g
-            for x, g in zip(inputs, grads)]
+    """Cotangents of ``inputs`` (zeros where unused) for one output: the
+    backward raster kernel and the segment sum, run by autograd."""
+    with trace.span("backward"):
+        grads = torch.autograd.grad(outputs, inputs, grad_outputs=cotangent,
+                                    allow_unused=True)
+        return [torch.zeros_like(x) if g is None else g
+                for x, g in zip(inputs, grads)]
 
 
 def _param_grads(params, attrs, d_attrs):
@@ -83,6 +88,13 @@ def _apply_grad_parity(d_params, d_attrs, aux, params, parity_sh):
         aux.radius_capped[:, None], torch.clamp(g_ls, min=0.0), g_ls)}
 
 
+def _project_vjp(params, attrs, d_attrs, aux, parity_sh):
+    """Stage 2 and the gradient routing: the parameters' gradients."""
+    with trace.span("project_vjp"):
+        d_params = _param_grads(params, attrs, d_attrs)
+        return _apply_grad_parity(d_params, d_attrs, aux, params, parity_sh)
+
+
 def compute_param_grads(scene: GaussianScene, camera: Camera,
                         target: torch.Tensor, img_w: int, img_h: int,
                         loss_cfg: LossConfig, settings: RenderSettings,
@@ -96,10 +108,10 @@ def compute_param_grads(scene: GaussianScene, camera: Camera,
                                   entry_capacity, for_grad=True)
     tiles = raster_ops.tiles_to_image(out, ntx, nty, img_w, img_h, settings)
     image = raster_ops.composite_background(tiles, settings)
-    pgrad = pixel_loss_gradient(image.detach(), target, loss_cfg)
+    with trace.span("loss"):
+        pgrad = pixel_loss_gradient(image.detach(), target, loss_cfg)
     d_attrs = SplatAttrs(*_vjp(image, list(leaves), pgrad))
-    d_params = _param_grads(params, attrs, d_attrs)
-    d_params = _apply_grad_parity(d_params, d_attrs, aux, params, parity_sh)
+    d_params = _project_vjp(params, attrs, d_attrs, aux, parity_sh)
     return image.detach(), d_params, aux, bins.expansion_entries
 
 
@@ -115,11 +127,12 @@ def compute_param_grads_tiled(scene: GaussianScene, camera: Camera,
     ntx, nty = binning_ops.tile_grid(img_w, img_h, settings)
     out, bins = render_from_attrs(leaves, aux, img_w, img_h, settings,
                                   entry_capacity, for_grad=True)
-    dpix, metrics = tile_loss_gradient(out.detach(), target, img_w, img_h,
-                                       ntx, nty, loss_cfg, settings)
+    with trace.span("loss"):
+        dpix, metrics = tile_loss_gradient(out.detach(), target, img_w,
+                                           img_h, ntx, nty, loss_cfg,
+                                           settings)
     d_attrs = SplatAttrs(*_vjp(out, list(leaves), dpix))
-    d_params = _param_grads(params, attrs, d_attrs)
-    d_params = _apply_grad_parity(d_params, d_attrs, aux, params, parity_sh)
+    d_params = _project_vjp(params, attrs, d_attrs, aux, parity_sh)
     return metrics, d_params, aux, bins.expansion_entries
 
 
@@ -140,9 +153,10 @@ def train_step(scene: GaussianScene, opt_state: AdamState, camera: Camera,
         image, d_params, aux, entry_demand = compute_param_grads(
             scene, camera, target, img_w, img_h, loss_cfg, settings,
             parity_sh=not hp.full_sh, entry_capacity=entry_capacity)
-        metrics = loss_metrics(image, target, loss_cfg)
+        with trace.span("loss"):
+            metrics = loss_metrics(image, target, loss_cfg)
 
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("adam"):
         new_params, new_opt = adam_step(scene.params(), d_params, opt_state,
                                         hp, aux.num_tiles)
     metrics["visible"] = aux.visible.sum(dtype=torch.int32)

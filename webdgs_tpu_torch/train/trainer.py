@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from webdgs_tpu_torch import trace
 from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
                                      quantize_budget)
 from webdgs_tpu_torch.core.camera import Camera, CameraData, make_camera
@@ -114,7 +115,6 @@ class Trainer:
         self.iteration = 0
         self._entry_cap_value: int | None = None
         self._entry_cap_peak = 0.0
-        self.step_ms = 0.0
         self.iters_per_sec = 0.0
         self._rate_mark: tuple[int, float] | None = None
         self.last_densify_iteration: int | None = None
@@ -158,7 +158,8 @@ class Trainer:
     def _maybe_adapt_entry_cap(self, metrics) -> None:
         if self.iteration != 1 and self.iteration % self.ENTRY_CAP_INTERVAL:
             return
-        observed = float(metrics["tile_entries"])
+        with trace.span("wait.entry_cap"):
+            observed = float(metrics["tile_entries"])
         self._entry_cap_peak = max(observed,
                                    self.ENTRY_CAP_DECAY * self._entry_cap_peak)
         chunk = self.settings.chunk
@@ -171,39 +172,47 @@ class Trainer:
 
     def step(self) -> dict:
         """One training iteration."""
-        t0 = time.perf_counter()
-        (w, h), g = self._pick_group()
-        step_kw = dict(img_w=w, img_h=h, loss_cfg=self.config.loss,
-                       hp=self.config.adam, settings=self.settings,
-                       entry_capacity=self._entry_cap())
-        if self.mesh is not None and self.mesh.size > 1:
-            # every rank draws the same indices; rank b trains view b
-            idxs = [self.rng.randrange(g["count"])
-                    for _ in range(self.mesh.size)]
-            self.scene, self.opt_state, metrics = dp_train_step(
-                self.scene, self.opt_state, [g["cams"][i] for i in idxs],
-                [g["imgs"][i] for i in idxs], self.mesh, **step_kw)
-        else:
-            idx = self.rng.randrange(g["count"])
-            self.scene, self.opt_state, metrics = train_step(
-                self.scene, self.opt_state, g["cams"][idx], g["imgs"][idx],
-                **step_kw)
-        self.iteration += 1
-        self._maybe_adapt_entry_cap(metrics)
-        if self.config.densify.schedule.should_densify(self.iteration):
-            self._run_densify(w, h)
-        self._finish_step(t0, metrics)
-        return metrics
+        with trace.span("train.step"):
+            self._gauge_slots()
+            (w, h), g = self._pick_group()
+            step_kw = dict(img_w=w, img_h=h, loss_cfg=self.config.loss,
+                           hp=self.config.adam, settings=self.settings,
+                           entry_capacity=self._entry_cap())
+            if self.mesh is not None and self.mesh.size > 1:
+                # every rank draws the same indices; rank b trains view b
+                idxs = [self.rng.randrange(g["count"])
+                        for _ in range(self.mesh.size)]
+                self.scene, self.opt_state, metrics = dp_train_step(
+                    self.scene, self.opt_state, [g["cams"][i] for i in idxs],
+                    [g["imgs"][i] for i in idxs], self.mesh, **step_kw)
+            else:
+                idx = self.rng.randrange(g["count"])
+                self.scene, self.opt_state, metrics = train_step(
+                    self.scene, self.opt_state, g["cams"][idx],
+                    g["imgs"][idx], **step_kw)
+            self.iteration += 1
+            self._maybe_adapt_entry_cap(metrics)
+            if self.config.densify.schedule.should_densify(self.iteration):
+                self._run_densify(w, h)
+            self._finish_step(metrics)
+            return metrics
+
+    def _gauge_slots(self) -> None:
+        """The alive Gaussians and the capacity slots the step works on
+        (host values; recorded only while tracing is on)."""
+        trace.gauge("slots.alive", self.num_points)
+        trace.gauge("slots.capacity", self.capacity)
 
     RATE_SYNC_INTERVAL = 100
 
-    def _finish_step(self, t0: float, metrics: dict) -> None:
-        """Step time and the iterations/s meter.  A step returns before the
-        device finishes, so the rate spans the wall time between real
-        syncs: every RATE_SYNC_INTERVAL steps one loss scalar is read."""
-        self.step_ms = (time.perf_counter() - t0) * 1e3
+    def _finish_step(self, metrics: dict) -> None:
+        """The iterations/s meter.  A step returns before the device
+        finishes, so the rate spans the wall time between real syncs:
+        every RATE_SYNC_INTERVAL steps one loss scalar is read."""
         if self.iteration % self.RATE_SYNC_INTERVAL == 0:
-            _ = float(metrics["loss"])  # block until this step finished
+            with trace.span("wait.rate"):
+                # block until this step finished
+                _ = float(metrics["loss"])
             now = time.perf_counter()
             if self._rate_mark is not None:
                 it0, tm = self._rate_mark
@@ -257,31 +266,40 @@ class Trainer:
 
     @torch.no_grad()
     def _run_densify(self, w: int, h: int) -> None:
+        with trace.span("densify.event"):
+            self._densify_event(w, h)
+
+    def _densify_event(self, w: int, h: int) -> None:
         cfg = self.config.densify
         g = self.groups[(w, h)]
         downscale = max(1, int(cfg.metric_downscale))
         mw, mh = max(1, w // downscale), max(1, h // downscale)
 
-        self._grow_capacity()
+        with trace.span("densify.grow"):
+            self._grow_capacity()
 
         n_views = min(max(1, cfg.metric_views), g["count"])
         view_idx = self.rng.sample(range(g["count"]), k=n_views)
-        cams = [self._metric_camera(g["cams"][i], mw, mh) for i in view_idx]
-        targets = g["imgs"][view_idx].permute(0, 3, 1, 2)
-        # bilinear with antialiasing: jax.image.resize(..., "linear")
-        t_small = F.interpolate(targets, size=(mh, mw), mode="bilinear",
-                                align_corners=False, antialias=True)
-        counts = multiview_importance_counts(
-            self.scene.params(), self.scene.alive, self.scene.sh_deg, cams,
-            t_small.permute(0, 2, 3, 1), mw, mh, cfg.metric_threshold,
-            self.settings)
-        result = densify_prune(self.scene, self.opt_state, counts, cfg,
-                               self.generator)
+        with trace.span("densify.importance"):
+            cams = [self._metric_camera(g["cams"][i], mw, mh)
+                    for i in view_idx]
+            targets = g["imgs"][view_idx].permute(0, 3, 1, 2)
+            # bilinear with antialiasing: jax.image.resize(..., "linear")
+            t_small = F.interpolate(targets, size=(mh, mw), mode="bilinear",
+                                    align_corners=False, antialias=True)
+            counts = multiview_importance_counts(
+                self.scene.params(), self.scene.alive, self.scene.sh_deg,
+                cams, t_small.permute(0, 2, 3, 1), mw, mh,
+                cfg.metric_threshold, self.settings)
+        with trace.span("densify.prune"):
+            result = densify_prune(self.scene, self.opt_state, counts, cfg,
+                                   self.generator)
 
         # the event's one read of its counts and decisions
-        out_total, in_alive, cloned, split, pruned = torch.stack([
-            result.out_total, result.in_alive, result.n_cloned,
-            result.n_split, result.n_pruned]).tolist()
+        with trace.span("wait.event_counts"):
+            out_total, in_alive, cloned, split, pruned = torch.stack([
+                result.out_total, result.in_alive, result.n_cloned,
+                result.n_split, result.n_pruned]).tolist()
         self.last_densify_event = {
             "iteration": self.iteration, "in": in_alive, "out": out_total,
             "cloned": cloned, "split": split, "pruned": pruned}
