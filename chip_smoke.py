@@ -63,6 +63,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      saturating, its launch shape (pixels per thread, butterfly batch,
      CTAs per SM), and its forward + autograd path run in sync debug mode
      "error" (no call may wait for the device);
+     the tile cull's two kernels (cull_words, entry_keys) against the
+     plain chains run on the same CUDA tensors at the bench step, every
+     word, count and key equal, timed back to back and queued;
   4. the viewer slice: a Viewer renders 5 bench frames through the render
      kernels (their launch counters are reset just before and must grow),
      and a small frame rendered on the card matches the plain CPU render;
@@ -74,9 +77,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      state twice giving bit-identical parameters, and a small step on the
      card matching the CPU;
   6. realistic size: one frame and 3 train steps of 1M Gaussians at
-     sh_deg 3, 1920x1080, and the forward, backward, tile-loss and expand
-     kernels against their plain versions at that frame's and step's
-     inputs;
+     sh_deg 3, 1920x1080, and the forward, backward, tile-loss, expand
+     and tile-cull kernels against their plain versions at that frame's
+     and step's inputs;
   6b. banded: the 1M sh3 scene at DCI 8K (8192x4320, 69,120 tiles, over
      the 16-bit tile-key limit: 2 bands) through Viewer.render and through
      render_banded in both modes, run in sync debug mode "error" (every
@@ -117,8 +120,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
      the synchronizing calls of each event counted, none of them from the
      segment sum, the raster wrappers or the importance counts), the
      forward kernel matches and
-     the importance and expand kernels equal their plain versions on every
-     slot of one 960x540 metric view of the post-event state and the
+     the importance, expand and tile-cull kernels equal their plain
+     versions on every slot of one 960x540 metric view of the post-event
+     state (the heuristic capacity) and the
      one-row segment sum of its counts matches its plain version there,
      and a small event on the card matches the same event on the CPU;
   9b. gs-train: on a 1-rank NCCL group, a GsTrainer and a Trainer of the
@@ -289,10 +293,13 @@ KERNEL_COUNTERS = (("expand_fields", "expand_fields"),
                    ("tile_loss_tiles", "tile_loss"),
                    ("rasterize_tiles_backward", "rasterize_tiles_backward"),
                    ("segment_sum_rows", "segment_sum_rows"),
-                   ("entry_counts", "entry_counts"))
+                   ("entry_counts", "entry_counts"),
+                   ("cull_words", "cull_words"),
+                   ("entry_keys", "entry_keys"))
 # the kernels each path must launch: a viewer frame, a training step (the
-# densify run, steps and events, launches all six)
-VIEWER_KERNELS = ("expand_fields", "rasterize_tiles")
+# densify run, steps and events, launches all eight)
+VIEWER_KERNELS = ("expand_fields", "rasterize_tiles", "cull_words",
+                  "entry_keys")
 TRAIN_KERNELS = VIEWER_KERNELS + ("tile_loss", "rasterize_tiles_backward",
                                   "segment_sum_rows")
 
@@ -995,10 +1002,11 @@ def forward_check(label: str, attrs16, tile_offsets, ntx: int, nty: int,
     return res
 
 
-def expansion_at(scene, cam, w: int, h: int, settings, cap: int | None):
-    """The expand kernel's inputs where ``bin_splats`` expands ``scene``
-    seen from ``cam`` at capacity ``cap`` (None: the heuristic capacity a
-    metric view takes): (words (5, N), counts (N,), e_cap)."""
+def binning_inputs_at(scene, cam, w: int, h: int, settings,
+                      cap: int | None):
+    """What ``bin_splats`` bins where it bins ``scene`` seen from ``cam``
+    at capacity ``cap`` (None: the heuristic capacity a metric view
+    takes): (attrs, aux, ntx, e_cap)."""
     import torch
     from webdgs_tpu_torch.ops import binning
     from webdgs_tpu_torch.ops.projection import project_gaussians
@@ -1006,8 +1014,18 @@ def expansion_at(scene, cam, w: int, h: int, settings, cap: int | None):
     with torch.no_grad():
         attrs, aux = project_gaussians(scene.params(), scene.alive, cam, w,
                                        h, scene.sh_deg, settings)
-        if cap is None:
-            cap = binning.entry_capacity(aux.num_tiles.shape[0], settings)
+    if cap is None:
+        cap = binning.entry_capacity(aux.num_tiles.shape[0], settings)
+    return attrs, aux, ntx, cap
+
+
+def expansion_at(scene, cam, w: int, h: int, settings, cap: int | None):
+    """The expand kernel's inputs at :func:`binning_inputs_at`'s: (words
+    (5, N), counts (N,), e_cap)."""
+    import torch
+    from webdgs_tpu_torch.ops import binning
+    attrs, aux, ntx, cap = binning_inputs_at(scene, cam, w, h, settings, cap)
+    with torch.no_grad():
         words, counts, _, _ = binning.expansion_inputs(aux, ntx, cap, attrs,
                                                        settings)
     return words, counts, cap
@@ -1133,6 +1151,84 @@ def expand_check(label: str, words, counts, e_cap: int, plain_iters: int,
         print(f"[kernels] expand_fields {label}, variant {name} (a timing "
               f"probe): {regs} registers; every slot equal {same}; the "
               f"kernel alone queued {v_dev:.4f} ms", flush=True)
+    return res
+
+
+def cull_check(label: str, attrs, aux, ntx: int, e_cap: int, settings,
+               plain_iters: int) -> dict:
+    """The tile cull's two kernels against their plain chains on one
+    shape's inputs, the chains run on the same CUDA tensors: cull_words'
+    five word rows and counts and entry_keys' keys (on the expansion of
+    those words at ``e_cap``) equal on every slot, a repeat bit-identical,
+    both wrappers run in sync debug mode "error".  Each kernel and its
+    plain chain timed in turns, back to back, and the kernel queued; the
+    bound from these inputs: cull_words reads 56 bytes and writes 24 per
+    slot, entry_keys reads 20 bytes per valid entry and writes 8 per entry
+    slot."""
+    import torch
+    from webdgs_tpu_torch.ops import binning, expand
+    n = aux.num_tiles.shape[0]
+    words, counts = binning.cull_words(aux, attrs, settings, ntx)
+    words2, counts2 = binning.cull_words(aux, attrs, settings, ntx)
+    pw, pc = binning.cull_words_plain(aux, attrs, settings, ntx)
+    torch.cuda.synchronize()
+    check(torch.equal(words, words2) and torch.equal(counts, counts2),
+          f"cull_words ({label}) is not bit-identical")
+    n_diff = int((words != pw).sum()) + int((counts != pc).sum())
+    check(n_diff == 0, f"cull_words ({label}): {n_diff} values differ from "
+          "the plain chain")
+    ws, c, _, demand = binning.expansion_inputs(aux, ntx, e_cap, attrs,
+                                                settings)
+    ew, _ = expand.expand_fields(ws, c, e_cap)
+    total = c.sum(dtype=torch.int64)
+    keys = binning.entry_keys(ew, total, ntx)
+    keys2 = binning.entry_keys(ew, total, ntx)
+    pk = binning.entry_keys_plain(ew, total, ntx)
+    torch.cuda.synchronize()
+    check(torch.equal(keys, keys2), f"entry_keys ({label}) is not "
+          "bit-identical")
+    k_diff = int((keys != pk).sum())
+    check(k_diff == 0, f"entry_keys ({label}): {k_diff} of {e_cap} keys "
+          "differ from the plain chain")
+    del words2, counts2, pw, pc, keys2, pk
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w3, c3 = binning.cull_words(aux, attrs, settings, ntx)
+        k3 = binning.entry_keys(ew, total, ntx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(w3, words) and torch.equal(c3, counts) and
+          torch.equal(k3, keys), f"the cull ({label}) differs in sync debug "
+          "mode")
+    del w3, c3, k3
+    valid, alive = int(total), int((aux.num_tiles > 0).sum())
+    res = {"slots": n, "live_slots": alive, "entry_slots": e_cap,
+           "valid": valid, "demand": int(demand), "survivors":
+           int(counts.sum(dtype=torch.int64)), "rect_tiles":
+           int(aux.num_tiles.sum(dtype=torch.int64))}
+    for name, kernel, plain, n_bytes in (
+            ("cull_words",
+             lambda: binning._cull_words_cuda(aux, attrs, settings, ntx),
+             lambda: binning.cull_words_plain(aux, attrs, settings, ntx),
+             80 * n),
+            ("entry_keys", lambda: binning._entry_keys_cuda(ew, total, ntx),
+             lambda: binning.entry_keys_plain(ew, total, ntx),
+             20 * valid + 8 * e_cap + 8)):
+        ms, plain_ms = time_pair(kernel, plain, 50, plain_iters)
+        res[name] = {"err": 0, "ms": ms, "plain_ms": plain_ms,
+                     "device_ms": queued_ms(kernel, 50),
+                     "bound": bound_ms(n_bytes, 0)}
+    cw, ek = res["cull_words"], res["entry_keys"]
+    print(f"[kernels] tile cull {label}: {n} slots ({alive} with tiles, "
+          f"{res['rect_tiles']} rect tiles, {res['survivors']} survive), "
+          f"{valid} valid of {e_cap} entry slots; every word, count and key "
+          f"equal to the plain chains; bit-identical repeat; sync debug mode"
+          f" \"error\" passed; cull_words {cw['ms']:.4f} ms, queued "
+          f"{cw['device_ms']:.4f} ms, plain {cw['plain_ms']:.4f} ms, bound "
+          f"{cw['bound'][0]:.4f} ms ({cw['bound'][1]}); entry_keys "
+          f"{ek['ms']:.4f} ms, queued {ek['device_ms']:.4f} ms, plain "
+          f"{ek['plain_ms']:.4f} ms, bound {ek['bound'][0]:.4f} ms "
+          f"({ek['bound'][1]})", flush=True)
     return res
 
 
@@ -1732,6 +1828,9 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     # the expansion of the same view (the heuristic capacity)
     exp_view = expand_check(f"{mw}x{mh} densify view",
                             *expansion_at(sc, mcam, mw, mh, s1m, None), 1)
+    cull_view = cull_check(
+        f"{mw}x{mh} densify view",
+        *binning_inputs_at(sc, mcam, mw, mh, s1m, None), s1m, 1)
     # the one-row segment sum an event launches once per view, on this
     # view's importance counts
     with torch.no_grad():
@@ -1743,7 +1842,7 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     torch.cuda.empty_cache()
     return {"launches": launches, "events": events, "peak_gb": peak_gb,
             "importance": imp, "segsum": seg, "forward": fwd,
-            "expand": exp_view}
+            "expand": exp_view, "cull": cull_view}
 
 
 def small_event_phase(dev, settings) -> None:
@@ -2279,7 +2378,8 @@ def cli_shard_phase(tmp: str, data: str, sparse: str, shard: str,
 # the bench's launches in its timed window: 20 steps and 20 frames
 BENCH_LAUNCHES = {"expand_fields": 40, "rasterize_tiles": 40,
                   "tile_loss_tiles": 20, "rasterize_tiles_backward": 20,
-                  "segment_sum_rows": 20, "entry_counts": 0}
+                  "segment_sum_rows": 20, "entry_counts": 0,
+                  "cull_words": 40, "entry_keys": 40}
 
 
 def bench_phase(ckpt: str) -> dict:
@@ -2971,6 +3071,9 @@ def main(argv: list[str] | None = None) -> int:
         target_n = (own + torch.tensor(noise, dtype=torch.float32,
                                        device=dev)).contiguous()
 
+    # the tile cull at the bench training step's capacity
+    cull_bench = cull_check(f"{w}x{h} training step", attrs, aux, ntx, cap,
+                            settings, 5)
     loss_bench = loss_check(f"{w}x{h} training step", tout, target_n, w, h,
                             ntx, nty, cfg, settings, 5)
     dk, _ = tile_loss.tile_loss_tiles(tout, target_n, w, h, ntx, nty, cfg,
@@ -3210,6 +3313,9 @@ def main(argv: list[str] | None = None) -> int:
     exp1m = expand_check(
         "1M sh3 1920x1080 frame",
         *expansion_at(big, cam1m, 1920, 1080, s1m, cap1m), 1)
+    cull1m = cull_check(
+        "1M sh3 1920x1080 frame",
+        *binning_inputs_at(big, cam1m, 1920, 1080, s1m, cap1m), s1m, 1)
     torch.cuda.empty_cache()
     s_big, o_big = big, init_adam_state(big.params())
     torch.cuda.reset_peak_memory_stats()
@@ -3392,6 +3498,35 @@ def main(argv: list[str] | None = None) -> int:
                 "library_ms": None, "device_ms": r["device_ms"],
                 "launch": r["launch"], "before": r.get("before")}
 
+    def cull_reading(r, name):
+        # one cull_check reading of one of its kernels for the kernels line
+        k = r[name]
+        return {"max_abs_err": k["err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+                "bound_by": k["bound"][1], "library_ms": None,
+                "device_ms": k["device_ms"],
+                **{f: r[f] for f in ("slots", "live_slots", "entry_slots",
+                                     "valid", "survivors", "rect_tiles")}}
+
+    def cull_entry(name):
+        # at the bench training step; the 1M frame and the densify view
+        # beside it
+        r = cull_reading(cull_bench, name)
+        return entry(name, "webdgs_tpu_torch/csrc/tile_cull.cu",
+                     "none (the XLA chains at webdgs_tpu/ops/binning.py:174 "
+                     "_cull_bitmask and :263 _select_nth_set_bit)",
+                     r.pop("max_abs_err"), r.pop("ms"), r.pop("plain_ms"),
+                     (r.pop("bound_ms"), r.pop("bound_by")),
+                     r.pop("library_ms"), **r,
+                     launches_viewer=launches[name],
+                     # a step bins once, beside the backward raster; each
+                     # metric view once
+                     launches_per_event=(dlaunch[name]
+                                         - dlaunch["rasterize_tiles_backward"])
+                     // len(densify_res["events"]),
+                     frame_1m=cull_reading(cull1m, name),
+                     densify_view=cull_reading(densify_res["cull"], name))
+
     kernels = [
         # at the bench frame; the 1M frame and the densify view beside it
         entry("expand_fields", "webdgs_tpu_torch/csrc/expand.cu",
@@ -3486,6 +3621,8 @@ def main(argv: list[str] | None = None) -> int:
                           "device_ms": imp_bench["device_ms"],
                           "pairs": imp_bench["pairs"],
                           "before": imp_bench.get("before")}),
+        cull_entry("cull_words"),
+        cull_entry("entry_keys"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

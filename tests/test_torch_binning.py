@@ -15,12 +15,15 @@ import torch
 import jax.numpy as jnp
 from webdgs_tpu.ops import binning as jbin
 from webdgs_tpu.ops.expand import expand_fields as jexpand
+from webdgs_tpu.ops.projection import SplatAttrs as JAttrs
+from webdgs_tpu.ops.projection import SplatAux as JAux
 from webdgs_tpu.ops.projection import project_gaussians as jproject
 from webdgs_tpu_torch.ops import binning as tbin
 from webdgs_tpu_torch.ops import kernel_launches
 from webdgs_tpu_torch.ops.expand import NWORDS, expand_fields
 
-from tests.torch_cases import EXPAND_CASES, crafted_expand_case
+from tests.torch_cases import (CULL_CASES, EXPAND_CASES, crafted_cull_case,
+                               crafted_expand_case, cull_inputs)
 from tests.torch_parity import (aux_to_torch, attrs_to_torch, both_cameras,
                                 both_scenes, jax_settings, np_,
                                 numpy_scene, torch_settings)
@@ -200,3 +203,99 @@ def test_capacity_and_tile_key_limit_match_jax():
     tbin.check_tile_key_limit(tbin.TILE_KEY_LIMIT - 1)
     with pytest.raises(ValueError):
         tbin.check_tile_key_limit(tbin.TILE_KEY_LIMIT)
+
+
+def _jax_cull_inputs(attrs: dict, aux: dict):
+    n = aux["num_tiles"].shape[0]
+    return (JAttrs(center_px=jnp.asarray(attrs["center_px"]),
+                   conic=jnp.asarray(attrs["conic"]),
+                   color=jnp.zeros((n, 3), jnp.float32),
+                   opacity=jnp.asarray(attrs["opacity"]),
+                   extents=jnp.asarray(attrs["extents"])),
+            JAux(depth=jnp.asarray(aux["depth"]),
+                 visible=jnp.asarray(aux["num_tiles"] > 0),
+                 tile_min=jnp.asarray(aux["tile_min"]),
+                 tile_dims=jnp.asarray(aux["tile_dims"]),
+                 num_tiles=jnp.asarray(aux["num_tiles"]),
+                 radius_capped=jnp.zeros((n,), bool)))
+
+
+@pytest.mark.parametrize("case", [c for c in CULL_CASES if c != "edge"])
+def test_cull_crafted_cases_match_jax(case):
+    """The crafted tile-cull cases of tests/test_torch_cuda.py (rects of
+    0 to 2,048 positions; non-convex, degenerate, NaN and infinite conics;
+    opacities at and below alpha_min, 0, NaN; depths of both signs and
+    the specials; NaN and infinite centres and extents; an e_cap that
+    drops Gaussians whole; 90 % dead slots) through the plain chains and
+    JAX: survivor masks, counts and every expand_entries output equal."""
+    attrs, aux, ntx, e_cap = crafted_cull_case(case, seed=40)
+    ta, tx = cull_inputs(attrs, aux, "cpu")
+    ja, jx = _jax_cull_inputs(attrs, aux)
+    words, counts = tbin.cull_words(tx, ta, torch_settings(), ntx)
+    lo, hi, jcounts = jbin._cull_bitmask(jx, ja, jax_settings())
+    np.testing.assert_array_equal(np_(words[3]), np.asarray(lo))
+    np.testing.assert_array_equal(np_(words[4]), np.asarray(hi))
+    np.testing.assert_array_equal(np_(counts), np.asarray(jcounts))
+    got = tbin.expand_entries(tx, ntx, e_cap, attrs=ta,
+                              settings=torch_settings())
+    want = jbin.expand_entries(jx, ntx, e_cap, attrs=ja,
+                               settings=jax_settings())
+    total = int(want[3])
+    assert int(got[3]) == total > 0
+    assert int(got[5]) == int(want[5])
+    if case == "drop":
+        assert int(want[5]) > e_cap  # Gaussians dropped whole
+    np.testing.assert_array_equal(np_(got[0]),
+                                  np.asarray(want[0]).astype(np.int64))
+    np.testing.assert_array_equal(np_(got[1])[:total],
+                                  np.asarray(want[1])[:total])
+    for g, w in zip(got[2:5:2], want[2:5:2]):
+        np.testing.assert_array_equal(np_(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_cull_wrappers_take_the_plain_chains_on_cpu(case):
+    """On CPU tensors cull_words and entry_keys run their plain versions
+    and launch nothing."""
+    attrs, aux, ntx, e_cap = crafted_cull_case(case, seed=41)
+    ta, tx = cull_inputs(attrs, aux, "cpu")
+    s = torch_settings()
+    before = kernel_launches()
+    words, counts = tbin.cull_words(tx, ta, s, ntx)
+    pw, pc = tbin.cull_words_plain(tx, ta, s, ntx)
+    assert words.dtype == counts.dtype == torch.int32
+    assert words.shape == (NWORDS, counts.shape[0])
+    assert torch.equal(words, pw) and torch.equal(counts, pc)
+    assert not words[1].any()  # the offsets row is the caller's
+    ws, c, _, _ = tbin.expansion_inputs(tx, ntx, e_cap, ta, s)
+    ew, _ = expand_fields(ws, c, e_cap)
+    total = c.sum(dtype=torch.int64)
+    keys = tbin.entry_keys(ew, total, ntx)
+    assert keys.dtype == torch.int64 and keys.shape == (e_cap,)
+    assert torch.equal(keys, tbin.entry_keys_plain(ew, total, ntx))
+    assert (keys[int(total):] == tbin.SENTINEL_KEY).all()
+    assert (keys[:int(total)] < tbin.SENTINEL_KEY).all()
+    assert kernel_launches() == before
+
+
+def test_cull_wrappers_check_inputs():
+    attrs, aux, ntx, e_cap = crafted_cull_case("rect_sizes", seed=42)
+    ta, tx = cull_inputs(attrs, aux, "cpu")
+    s = torch_settings()
+    with pytest.raises(TypeError):
+        tbin.cull_words(tx._replace(num_tiles=tx.num_tiles.long()), ta, s,
+                        ntx)
+    with pytest.raises(TypeError):
+        tbin.cull_words(tx, ta._replace(conic=ta.conic.double()), s, ntx)
+    with pytest.raises(ValueError):
+        tbin.cull_words(tx, ta._replace(opacity=ta.opacity[:-1]), s, ntx)
+    ew = torch.zeros((NWORDS, 64), dtype=torch.int32)
+    total = torch.tensor(3, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tbin.entry_keys(ew[:4], total, ntx)
+    with pytest.raises(TypeError):
+        tbin.entry_keys(ew.long(), total, ntx)
+    with pytest.raises(TypeError):
+        tbin.entry_keys(ew, total.int(), ntx)
+    with pytest.raises(TypeError):
+        tbin.entry_keys(ew.T.contiguous().T, total, ntx)

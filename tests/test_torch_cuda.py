@@ -8,14 +8,21 @@ conftest:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
 
+import importlib.util
+import json
+import math
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from webdgs_tpu_torch.config import RenderSettings
-from webdgs_tpu_torch.core.camera import default_camera
+from webdgs_tpu_torch.core.camera import (CameraData, default_camera,
+                                          make_camera)
 from webdgs_tpu_torch.core.scene import scene_from_arrays
 from webdgs_tpu_torch.ops import kernel_launches
+from webdgs_tpu_torch.ops import binning as tbin
 from webdgs_tpu_torch.ops import rasterize as tras
 from webdgs_tpu_torch.ops.binning import bin_splats
 from webdgs_tpu_torch.ops.expand import (NWORDS, expand_fields,
@@ -25,9 +32,10 @@ from webdgs_tpu_torch.render.renderer import render
 
 # tests/ is on the path (pytest's rootdir-less import mode); a machine may
 # also have an unrelated top-level package named "tests"
-from torch_cases import (BAND_FRAME, BAND_SPLITS, EXPAND_CASES,
+from torch_cases import (BAND_FRAME, BAND_SPLITS, CULL_CASES, EXPAND_CASES,
                          aligned_entries, band_loss_frame,
-                         crafted_expand_case, split_bands)
+                         crafted_cull_case, crafted_expand_case, cull_inputs,
+                         split_bands)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +94,130 @@ def test_expand_kernel_crafted_cases(cuda, case):
     for a, b, w in zip(k1, k2, want):
         assert torch.equal(a, b)
         assert torch.equal(a.cpu(), w)
+
+
+def _check_cull_kernels(attrs, aux, settings, ntx, e_cap):
+    """Both tile-cull kernels against their plain chains on the same CUDA
+    tensors, every value equal, and a repeat bit-identical; the expansion
+    of the words is expand_entries'.  Returns (demand, total)."""
+    launches = kernel_launches()
+    words, counts = tbin.cull_words(aux, attrs, settings, ntx)
+    words2, counts2 = tbin.cull_words(aux, attrs, settings, ntx)
+    pw, pc = tbin.cull_words_plain(aux, attrs, settings, ntx)
+    torch.cuda.synchronize()
+    assert torch.equal(words, words2) and torch.equal(counts, counts2)
+    for row in range(NWORDS):
+        diff = int((words[row] != pw[row]).sum())
+        assert diff == 0, f"cull_words row {row}: {diff} slots differ"
+    assert torch.equal(counts, pc), int((counts != pc).sum())
+    ws, c, _, demand = tbin.expansion_inputs(aux, ntx, e_cap, attrs,
+                                             settings)
+    ew, _ = expand_fields(ws, c, e_cap)
+    total = c.sum(dtype=torch.int64)
+    keys = tbin.entry_keys(ew, total, ntx)
+    keys2 = tbin.entry_keys(ew, total, ntx)
+    plain = tbin.entry_keys_plain(ew, total, ntx)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, keys2)
+    diff = int((keys != plain).sum())
+    assert diff == 0, f"entry_keys: {diff} of {e_cap} slots differ"
+    after = kernel_launches()
+    assert after["cull_words"] == launches["cull_words"] + 3
+    assert after["entry_keys"] == launches["entry_keys"] + 2
+    return int(demand), int(total)
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_tile_cull_kernels_crafted_cases(cuda, case):
+    """cull_words and entry_keys equal to the plain chains on the crafted
+    cases of tests/torch_cases.py: rects of 0 to 2,048 positions,
+    non-convex, degenerate, NaN and infinite conics, opacities at and
+    below alpha_min, special depths of both signs, NaN and infinite
+    geometry, an e_cap that drops Gaussians whole, 90 % dead slots, and
+    20,000 opacities within 3 ulps of the cull threshold."""
+    attrs, aux, ntx, e_cap = crafted_cull_case(case, seed=43)
+    ta, tx = cull_inputs(attrs, aux, cuda)
+    demand, total = _check_cull_kernels(ta, tx, RenderSettings(), ntx,
+                                        e_cap)
+    assert total > 0
+    if case == "drop":
+        assert demand > e_cap
+
+
+def _bench_config_draw(name: str, n: int, seed: int, device):
+    """A seeded draw of n Gaussians of a benchmark configuration
+    (portbench/configs, portbench/scenes.py) seen from one of its ring
+    views at the configuration's view size, with 37 % dead slots (a
+    trainer's capacity past its alive rows): (attrs, aux, settings, w,
+    h)."""
+    root = Path(__file__).resolve().parents[1] / "portbench"
+    spec = importlib.util.spec_from_file_location("bench_scenes",
+                                                  root / "scenes.py")
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    cfg = json.loads((root / "configs" / f"{name}.json").read_text())
+    cfg["gaussians"] = n
+    w, h = cfg["width"], cfg["height"]
+    params = scenes.make_scene(cfg, seed, device)
+    pos, rot = scenes.ring_poses(cfg, seed, 1)[0]
+    focal = 0.5 * h / math.tan(math.radians(cfg["fov_y_deg"]) / 2)
+    cam = make_camera(CameraData(position=pos.astype(np.float32),
+                                 rotation=rot.astype(np.float32), fy=focal,
+                                 width=w, height=h), w, h, device=device)
+    render = dict(cfg["render"], background=tuple(
+        cfg["render"]["background"]))
+    settings = RenderSettings(**render)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    alive = torch.rand((n,), generator=g, device=device) >= 0.37
+    with torch.no_grad():
+        attrs, aux = project_gaussians(params, alive, cam, w, h,
+                                       cfg["sh_degree"], settings)
+    return attrs, aux, settings, w, h
+
+
+@pytest.mark.parametrize("config", ["tandt-1.66m-sh3", "mip360-2.96m-sh3"])
+def test_tile_cull_kernels_bench_scene_draws(cuda, config):
+    """Both kernels equal to the plain chains on a 200k-slot draw of each
+    benchmark configuration at its view size: at the heuristic capacity
+    (most entry slots past the total), at 1.2x the demand (the trainer's)
+    and at 0.9x (Gaussians dropped whole)."""
+    attrs, aux, s, w, h = _bench_config_draw(config, 200_000, 2**31 + 7,
+                                             cuda)
+    ntx, _ = tbin.tile_grid(w, h, s)
+    demand, _ = _check_cull_kernels(attrs, aux, s, ntx,
+                                    tbin.entry_capacity(200_000, s))
+    assert demand > 100_000
+    for share in (1.2, 0.9):
+        _check_cull_kernels(attrs, aux, s, ntx, int(demand * share))
+
+
+def test_bin_splats_launches_each_cull_kernel_once(cuda, monkeypatch):
+    """bin_splats on the card launches cull_words and entry_keys once each
+    and bins exactly as with the plain chains, in sync debug mode "error"
+    (no host read)."""
+    attrs, aux, s, w, h = _bench_config_draw("tandt-1.66m-sh3", 50_000, 3,
+                                             cuda)
+    launches = kernel_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bin_splats(aux, w, h, s, attrs=attrs, with_source=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = kernel_launches()
+    assert {k: after[k] - launches[k] for k in after} == {
+        **dict.fromkeys(after, 0), "cull_words": 1, "entry_keys": 1,
+        "expand_fields": 1}
+    monkeypatch.setattr(tbin, "cull_words", tbin.cull_words_plain)
+    monkeypatch.setattr(tbin, "entry_keys", tbin.entry_keys_plain)
+    want = bin_splats(aux, w, h, s, attrs=attrs, with_source=True)
+    assert kernel_launches()["cull_words"] == after["cull_words"]
+    assert int(got.total_entries) == int(want.total_entries) > 0
+    for name in ("entry_gauss", "entry_valid", "tile_offsets",
+                 "tile_counts", "entry_source", "gauss_counts",
+                 "expansion_gauss", "expansion_entries"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 def test_expand_runs_without_host_sync(cuda):

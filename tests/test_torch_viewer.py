@@ -258,4 +258,4 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build()
     assert [p.name for p in _build.sources()] == [
         "expand.cu", "importance.cu", "rasterize_bwd.cu", "rasterize_fwd.cu",
-        "segsum.cu", "tile_loss.cu"]
+        "segsum.cu", "tile_cull.cu", "tile_loss.cu"]

@@ -126,3 +126,181 @@ def aligned_entries(attrs16, tile_offsets, chunk: int, slack: int = 0):
     src = src.to(torch.int64)
     rows = torch.where(valid[None, :], attrs16[:, src], 0.0).contiguous()
     return rows, offsets, src, valid
+
+
+# crafted inputs of the tile cull (ops/binning.py:cull_words and
+# entry_keys).  tests/test_torch_cuda.py holds the kernels against the
+# plain chains on the card on every case, tests/test_torch_binning.py the
+# plain chains against JAX on the CPU on all but "edge", whose opacities
+# sit within a few ulps of the cull threshold, where torch's and XLA's logf
+# round independently.  Every case mixes in dead slots (no tiles).
+CULL_CASES = ("rect_sizes", "conics", "opacity", "depth", "geometry",
+              "drop", "dead", "edge")
+CULL_GRID = (80, 64)  # tiles (ntx, nty): 2,560 x 1,024 px at 32 x 16
+# rect shapes (tiles_x, tiles_y) of 1, 31, 32, 33, 64, 65 and 2,048
+# positions ("rect_sizes" adds rects of 0)
+CULL_RECTS = ((1, 1), (31, 1), (1, 31), (8, 4), (4, 8), (11, 3), (3, 11),
+              (8, 8), (16, 4), (13, 5), (5, 13), (64, 32))
+
+
+def _cull_qmin64(ca, cb, cc, x0, y0, tile_w, tile_h, ex, ey):
+    """The cull's quadratic minimum over one tile's box, in float64 (the
+    chain's formula without its roundings)."""
+    x1, y1 = x0 + (tile_w - 1), y0 + (tile_h - 1)
+    exm, eym = ex + 1e-3, ey + 1e-3
+    x0, x1 = np.maximum(x0, -exm), np.minimum(x1, exm)
+    y0, y1 = np.maximum(y0, -eym), np.minimum(y1, eym)
+    inside = (x0 <= 0) & (x1 >= 0) & (y0 <= 0) & (y1 >= 0)
+
+    def edge_x(dxf):
+        dy = np.clip(-cb * dxf / np.maximum(cc, 1e-12), y0, y1)
+        return (ca * dxf + 2.0 * cb * dy) * dxf + cc * dy * dy
+
+    def edge_y(dyf):
+        dx = np.clip(-cb * dyf / np.maximum(ca, 1e-12), x0, x1)
+        return (ca * dx + 2.0 * cb * dyf) * dx + cc * dyf * dyf
+    qmin = np.minimum(np.minimum(edge_x(x0), edge_x(x1)),
+                      np.minimum(edge_y(y0), edge_y(y1)))
+    return np.where(inside, 0.0, qmin) * (1.0 - 2.0 ** -12)
+
+
+def crafted_cull_case(case: str, seed: int, tile_w: int = 32,
+                      tile_h: int = 16, alpha_min: float = 1.0 / 255.0):
+    """Numpy inputs of the tile cull: (attrs, aux, ntx, e_cap), where attrs
+    and aux are dicts of the SplatAttrs / SplatAux fields the cull reads
+    (float32 and int32 arrays) and e_cap never drops a Gaussian but in
+    "drop" (:func:`cull_inputs` makes the port's tuples of them)."""
+    rng = np.random.default_rng(seed)
+    ntx, nty = CULL_GRID
+    per_shape = 40 if case == "rect_sizes" else 0
+    n = len(CULL_RECTS) * per_shape or (20_000 if case == "edge" else 3000)
+    if per_shape:
+        dims = np.repeat(np.array(CULL_RECTS), per_shape, axis=0)
+    else:
+        dims = rng.integers(1, 9, (n, 2))
+    tmin = np.stack([rng.integers(0, ntx - dims[:, 0] + 1),
+                     rng.integers(0, nty - dims[:, 1] + 1)], axis=1)
+    num_tiles = dims[:, 0] * dims[:, 1]
+    # splat centres in and around the rects, conics of 1 to 60 px sigmas
+    cx = (tmin[:, 0] + rng.uniform(-1.0, dims[:, 0] + 1.0)) * tile_w
+    cy = (tmin[:, 1] + rng.uniform(-1.0, dims[:, 1] + 1.0)) * tile_h
+    sig = np.exp(rng.uniform(np.log(1.0), np.log(60.0), (n, 2)))
+    th = rng.uniform(0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    va, vb = 1.0 / sig[:, 0] ** 2, 1.0 / sig[:, 1] ** 2
+    conic = np.stack([c * c * va + s * s * vb, c * s * (va - vb),
+                      s * s * va + c * c * vb], axis=1)
+    ext = np.minimum(3.0 * sig * rng.uniform(0.5, 1.5, (n, 2)), 128.0)
+    opacity = rng.uniform(0.003, 1.0, n)
+    depth = rng.normal(0.0, 30.0, n)
+
+    def pick(share):
+        return rng.random(n) < share
+
+    if case == "conics":
+        bad = rng.integers(0, 9, n)
+        for k, sel in enumerate((bad[:, None] == np.arange(9)).T):
+            if k == 0:  # a < 0
+                conic[sel, 0] *= -1
+            elif k == 1:  # c < 0
+                conic[sel, 2] *= -1
+            elif k == 2:  # det < 0
+                conic[sel, 1] = np.sqrt(conic[sel, 0] * conic[sel, 2]) * 1.5
+            elif k == 3:  # all zero
+                conic[sel] = 0.0
+            elif k == 4:  # det = 0
+                conic[sel] = conic[sel][:, [0, 0, 0]]
+            elif k == 5:  # a NaN in one of the three
+                conic[sel, rng.integers(0, 3)] = np.nan
+            elif k == 6:  # below the 1e-12 floor, and huge
+                conic[sel, 0] = 1e-30
+                conic[sel, 2] = 1e30
+            elif k == 7:
+                conic[sel, rng.integers(0, 3)] = np.inf
+    elif case == "opacity":
+        a32 = np.float32(alpha_min)
+        special = np.array([a32, np.nextafter(a32, np.float32(0)),
+                            np.nextafter(a32, np.float32(1)), 0.0, -1.0,
+                            np.nan, 1e-13, 1.0, np.inf], np.float32)
+        sel = pick(0.6)
+        opacity[sel] = special[rng.integers(0, len(special), sel.sum())]
+    elif case == "depth":
+        special = np.array([0.0, -0.0, 1e-30, -1e-30, 1e30, -1e30, np.inf,
+                            -np.inf, np.nan, 0.01, -0.01], np.float32)
+        sel = pick(0.5)
+        depth[sel] = special[rng.integers(0, len(special), sel.sum())]
+    elif case == "geometry":
+        for arr, k in ((cx, 0), (cy, 1)):
+            arr[pick(0.05)] = np.nan
+            arr[pick(0.05)] = np.inf * rng.choice([-1, 1])
+        for k in (0, 1):
+            ext[pick(0.05), k] = np.nan
+            ext[pick(0.05), k] = np.inf
+            ext[pick(0.05), k] = 0.0
+            ext[pick(0.05), k] = -5.0
+    elif case == "dead":
+        # 90 % dead slots, whose other fields are garbage as a dead
+        # capacity slot's may be
+        dead = pick(0.9)
+        num_tiles[dead] = 0
+        conic[dead & pick(0.5)] = np.nan
+        cx[dead & pick(0.5)] = np.inf
+        opacity[dead & pick(0.5)] = -3.0
+    elif case == "edge":
+        # opacities at the cull threshold of one rect position each: qthr
+        # = 2 ln(op / alpha_min)(1 + 1e-5) + 1e-4 solved for op at the
+        # position's float64 qmin, then moved by -3 to +3 ulps
+        p = rng.integers(0, num_tiles)
+        q_loc, r_loc = p // dims[:, 0], p % dims[:, 0]
+        x0 = (tmin[:, 0] + r_loc) * tile_w + 0.5 - cx
+        y0 = (tmin[:, 1] + q_loc) * tile_h + 0.5 - cy
+        qmin = _cull_qmin64(conic[:, 0], conic[:, 1], conic[:, 2], x0, y0,
+                            tile_w, tile_h, ext[:, 0], ext[:, 1])
+        qmin = np.clip(qmin, 0.0, 40.0)
+        opacity = alpha_min * np.exp((qmin - 1e-4) / (2.0 * (1.0 + 1e-5)))
+        opacity = opacity.astype(np.float32)
+        steps = rng.integers(-3, 4, n)
+        for _ in range(3):
+            up = steps > 0
+            down = steps < 0
+            opacity[up] = np.nextafter(opacity[up], np.float32(np.inf))
+            opacity[down] = np.nextafter(opacity[down], np.float32(0))
+            steps = steps - up + down
+    # dead slots in every case; a rect's dims stay, as the projection
+    # leaves them for a culled splat
+    dead = pick(0.3) if case != "dead" else num_tiles == 0
+    num_tiles[dead] = 0
+    total = int(num_tiles.sum())
+    # the cull keeps about a fifth of these rects' tiles
+    e_cap = total // 12 if case == "drop" else total + 100
+    attrs = {"conic": conic.astype(np.float32),
+             "opacity": opacity.astype(np.float32),
+             "center_px": np.stack([cx, cy], axis=1).astype(np.float32),
+             "extents": ext.astype(np.float32)}
+    aux = {"depth": depth.astype(np.float32),
+           "tile_min": tmin.astype(np.int32),
+           "tile_dims": dims.astype(np.int32),
+           "num_tiles": num_tiles.astype(np.int32)}
+    return attrs, aux, ntx, e_cap
+
+
+def cull_inputs(attrs: dict, aux: dict, device):
+    """The port's (SplatAttrs, SplatAux) of a :func:`crafted_cull_case`
+    on ``device``; the fields the cull does not read are zeros."""
+    import torch
+
+    from webdgs_tpu_torch.ops.projection import SplatAttrs, SplatAux
+
+    def t(x):
+        return torch.tensor(x, device=device)
+    n = aux["num_tiles"].shape[0]
+    zeros = torch.zeros((n,), dtype=torch.bool, device=device)
+    return (SplatAttrs(center_px=t(attrs["center_px"]),
+                       conic=t(attrs["conic"]),
+                       color=torch.zeros((n, 3), device=device),
+                       opacity=t(attrs["opacity"]),
+                       extents=t(attrs["extents"])),
+            SplatAux(depth=t(aux["depth"]), visible=t(aux["num_tiles"] > 0),
+                     tile_min=t(aux["tile_min"]),
+                     tile_dims=t(aux["tile_dims"]),
+                     num_tiles=t(aux["num_tiles"]), radius_capped=zeros))

@@ -78,6 +78,12 @@ SIGNATURES = {
     # tile_w, tile_h, out (5 ints: threads, shared bytes, CTAs per SM,
     # registers, CTAs per tile)
     "webdgs_importance_occupancy": (_I, _I, _P),
+    # conic, opacity, center, extents, tile_min, tile_dims, num_tiles,
+    # depth, n, ntx, tile_w, tile_h, 1 / alpha_min, words, counts, stream
+    "webdgs_cull_words": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _F, _P, _P, _P),
+    # words, total, e_cap, ntx, keys, stream
+    "webdgs_entry_keys": (_P, _P, _I, _I, _P, _P),
 }
 
 

@@ -1,6 +1,6 @@
 KERNEL_WRAPPERS = ("expand_fields", "rasterize_tiles", "tile_loss_tiles",
                    "rasterize_tiles_backward", "segment_sum_rows",
-                   "entry_counts")
+                   "entry_counts", "cull_words", "entry_keys")
 
 
 def kernel_launches() -> dict:

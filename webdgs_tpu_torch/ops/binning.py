@@ -11,6 +11,14 @@ histogram of the tile rects (cull off).  The ragged expansion always goes
 through :func:`webdgs_tpu_torch.ops.expand.expand_fields`, whose CUDA
 kernel replaces the TPU expansion kernel.  Gaussians that would overflow
 the entry capacity are dropped whole.
+
+With the tile cull on, its two halves are kernel wrappers too
+(``csrc/tile_cull.cu``): :func:`cull_words` (the per-Gaussian binning words
+and survivor masks) and :func:`entry_keys` (each entry slot's sort key from
+its expanded words).  On a CPU tensor each runs its plain version, the torch
+chain it replaced (:func:`cull_words_plain`, :func:`entry_keys_plain`); on
+a CUDA tensor it launches the kernel, which returns the same integers as
+the chain on the same tensors, or raises.
 """
 
 from __future__ import annotations
@@ -19,8 +27,9 @@ from typing import NamedTuple
 
 import torch
 
+from webdgs_tpu_torch import _build, trace
 from webdgs_tpu_torch.config import RenderSettings
-from webdgs_tpu_torch.ops.expand import expand_fields
+from webdgs_tpu_torch.ops.expand import NWORDS, expand_fields
 from webdgs_tpu_torch.ops.projection import SplatAttrs, SplatAux
 
 MASK32 = 0xFFFFFFFF
@@ -224,6 +233,91 @@ def _culling(attrs: SplatAttrs | None,
     return attrs is not None and settings is not None and settings.tile_cull
 
 
+def _binning_words(aux: SplatAux, ntx: int, lo: torch.Tensor,
+                   hi: torch.Tensor) -> torch.Tensor:
+    """The (5, N) i32 binning words with a zero offsets row: the key base
+    ``(base_tile << 16) | depth16``, 0, tiles_x, the mask words lo/hi
+    (int64 in [0, 2^32))."""
+    base_tile = (aux.tile_min[:, 1].to(torch.int64) * ntx
+                 + aux.tile_min[:, 0].to(torch.int64))
+    words = torch.stack([
+        (base_tile << 16) | _ordered_depth16(aux.depth),
+        torch.zeros_like(base_tile),
+        aux.tile_dims[:, 0].to(torch.int64),
+        lo,
+        hi,
+    ])
+    return _to_i32(words)
+
+
+def cull_words_plain(aux: SplatAux, attrs: SplatAttrs,
+                     settings: RenderSettings, ntx: int):
+    """Plain torch version of :func:`cull_words`."""
+    lo, hi, counts = _cull_bitmask(aux, attrs, settings)
+    return _binning_words(aux, ntx, lo, hi), counts.to(torch.int32)
+
+
+def _check_cull_inputs(aux: SplatAux, attrs: SplatAttrs) -> None:
+    n = aux.num_tiles.shape[0]
+    shapes = {"conic": (attrs.conic, (n, 3), torch.float32),
+              "opacity": (attrs.opacity, (n,), torch.float32),
+              "center_px": (attrs.center_px, (n, 2), torch.float32),
+              "extents": (attrs.extents, (n, 2), torch.float32),
+              "tile_min": (aux.tile_min, (n, 2), torch.int32),
+              "tile_dims": (aux.tile_dims, (n, 2), torch.int32),
+              "num_tiles": (aux.num_tiles, (n,), torch.int32),
+              "depth": (aux.depth, (n,), torch.float32)}
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != aux.num_tiles.device:
+            raise ValueError(f"{name} is on {t.device}, num_tiles on "
+                             f"{aux.num_tiles.device}")
+
+
+def _cull_words_cuda(aux, attrs, settings, ntx):
+    lib = _build.library()
+    n = aux.num_tiles.shape[0]
+    dev = aux.num_tiles.device
+    words = torch.empty((NWORDS, n), dtype=torch.int32, device=dev)
+    counts = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return words, counts
+    ins = [t.detach().contiguous() for t in (
+        attrs.conic, attrs.opacity, attrs.center_px, attrs.extents,
+        aux.tile_min, aux.tile_dims, aux.num_tiles, aux.depth)]
+    # the chain's ``op / alpha_min`` on the card is a product with the
+    # reciprocal, taken in double and rounded to float32 (as this c_float)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.webdgs_cull_words(
+            *(t.data_ptr() for t in ins), n, ntx, settings.tile_w,
+            settings.tile_h, 1.0 / settings.alpha_min, words.data_ptr(),
+            counts.data_ptr(), stream)
+    _build.check(err, "cull_words")
+    trace.count("launches.cull_words")
+    return words, counts
+
+
+def cull_words(aux: SplatAux, attrs: SplatAttrs, settings: RenderSettings,
+               ntx: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact tile cull's per-Gaussian half: (words (5, N) i32, counts
+    (N,) i32).  The words are :func:`expansion_inputs`' five binning words
+    with the offsets row zero (the caller fills it after the overflow
+    drop); rows 3 and 4 hold the survivor mask of :func:`_cull_bitmask`,
+    counts its survivors (every tile of a rect over 64 positions).
+    ``kernel_launches()["cull_words"]`` counts the CUDA kernel's launches."""
+    _check_cull_inputs(aux, attrs)
+    dev = aux.num_tiles.device
+    if dev.type == "cpu":
+        return cull_words_plain(aux, attrs, settings, ntx)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _cull_words_cuda(aux, attrs, settings, ntx)
+
+
 def expansion_inputs(aux: SplatAux, ntx: int, e_cap: int,
                      attrs: SplatAttrs | None = None,
                      settings: RenderSettings | None = None):
@@ -234,29 +328,81 @@ def expansion_inputs(aux: SplatAux, ntx: int, e_cap: int,
     cull); counts are the kept entries, after Gaussians that would
     overflow ``e_cap`` are dropped whole; demand is the entry count before
     that drop."""
-    cull_on = _culling(attrs, settings)
-    if cull_on:
-        mask_lo, mask_hi, counts0 = _cull_bitmask(aux, attrs, settings)
+    if _culling(attrs, settings):
+        words, counts0 = cull_words(aux, attrs, settings, ntx)
     else:
+        zeros = torch.zeros_like(aux.num_tiles, dtype=torch.int64)
+        words = _binning_words(aux, ntx, zeros, zeros)
         counts0 = aux.num_tiles
     counts0 = counts0.to(torch.int64)
     cum_all = torch.cumsum(counts0, 0)
     demand = cum_all[-1]
     keep = cum_all <= e_cap
     counts = torch.where(keep, counts0, 0)
-    offsets = torch.cumsum(counts, 0) - counts
+    words[1] = torch.cumsum(counts, 0) - counts  # first entry slot
+    return words, counts.to(torch.int32), keep, demand
 
-    base_tile = (aux.tile_min[:, 1].to(torch.int64) * ntx
-                 + aux.tile_min[:, 0].to(torch.int64))
-    zeros = torch.zeros_like(base_tile)
-    words = torch.stack([
-        (base_tile << 16) | _ordered_depth16(aux.depth),
-        offsets,
-        aux.tile_dims[:, 0].to(torch.int64),
-        mask_lo if cull_on else zeros,
-        mask_hi if cull_on else zeros,
-    ])
-    return _to_i32(words), counts.to(torch.int32), keep, demand
+
+def _entry_key(w_key: torch.Tensor, pos: torch.Tensor, w_tx: torch.Tensor,
+               valid: torch.Tensor, ntx: int) -> torch.Tensor:
+    """The u32 key ``key_base + (tile << 16)`` of rect position ``pos``, in
+    int64; the sentinel where not ``valid``."""
+    tiles_x = torch.clamp(w_tx, min=1)
+    q = torch.div(pos, tiles_x, rounding_mode="floor")
+    r = pos - q * tiles_x
+    return torch.where(valid, (w_key + ((q * ntx + r) << 16)) & MASK32,
+                       SENTINEL_KEY)
+
+
+def entry_keys_plain(ew: torch.Tensor, total: torch.Tensor,
+                     ntx: int) -> torch.Tensor:
+    """Plain torch version of :func:`entry_keys`."""
+    e_idx = torch.arange(ew.shape[1], dtype=torch.int64, device=ew.device)
+    slot = e_idx - ew[1].to(torch.int64)
+    pos = _select_nth_set_bit(_to_u32(ew[3]), _to_u32(ew[4]),
+                              torch.clamp(slot, min=0))
+    # large rects (identity mask, may exceed 64 positions): p == slot
+    pos = torch.where(slot >= CULL_POSITIONS, slot, pos)
+    return _entry_key(_to_u32(ew[0]), pos, ew[2].to(torch.int64),
+                      e_idx < total, ntx)
+
+
+def _entry_keys_cuda(ew, total, ntx):
+    lib = _build.library()
+    e_cap = ew.shape[1]
+    keys = torch.empty((e_cap,), dtype=torch.int64, device=ew.device)
+    with torch.cuda.device(ew.device):
+        stream = torch.cuda.current_stream(ew.device).cuda_stream
+        err = lib.webdgs_entry_keys(ew.data_ptr(), total.data_ptr(), e_cap,
+                                    ntx, keys.data_ptr(), stream)
+    _build.check(err, "entry_keys")
+    trace.count("launches.entry_keys")
+    return keys
+
+
+def entry_keys(ew: torch.Tensor, total: torch.Tensor,
+               ntx: int) -> torch.Tensor:
+    """The exact tile cull's per-entry half: the sort key (E,) int64 of
+    each expansion slot, the u32 ``(tile << 16) | depth16`` below the
+    ``total`` () int64 entries and the sentinel past it.  ``ew`` is
+    ``expand_fields``' (5, E) i32 words of :func:`cull_words`; an entry's
+    tile is its rect position found by :func:`_select_nth_set_bit` on its
+    survivor mask.  ``kernel_launches()["entry_keys"]`` counts the CUDA
+    kernel's launches."""
+    if ew.dim() != 2 or ew.shape[0] != NWORDS or ew.shape[1] == 0:
+        raise ValueError(f"ew must be ({NWORDS}, E) with E > 0, got "
+                         f"{tuple(ew.shape)}")
+    if ew.dtype != torch.int32 or not ew.is_contiguous():
+        raise TypeError(f"ew must be contiguous int32, got {ew.dtype}")
+    if total.shape != () or total.dtype != torch.int64:
+        raise TypeError("total must be a () int64 tensor")
+    if total.device != ew.device:
+        raise ValueError("ew and total are on different devices")
+    if ew.device.type == "cpu":
+        return entry_keys_plain(ew, total, ntx)
+    if ew.device.type != "cuda":
+        raise ValueError(f"unsupported device {ew.device}")
+    return _entry_keys_cuda(ew, total, ntx)
 
 
 def expand_entries(aux: SplatAux, ntx: int, e_cap: int,
@@ -272,33 +418,17 @@ def expand_entries(aux: SplatAux, ntx: int, e_cap: int,
     demand.  With ``attrs`` and ``settings.tile_cull``, only the
     (gaussian, tile) pairs that survive :func:`_cull_bitmask` are emitted;
     each entry maps its survivor slot back to a rect position by
-    :func:`_select_nth_set_bit`."""
-    cull_on = _culling(attrs, settings)
-    dev = aux.num_tiles.device
+    :func:`_select_nth_set_bit` (:func:`cull_words`, :func:`entry_keys`)."""
     words, counts, keep, demand = expansion_inputs(aux, ntx, e_cap, attrs,
                                                    settings)
     total_expansion = counts.sum(dtype=torch.int64)
     ew, g = expand_fields(words, counts, e_cap)
-    w_key = _to_u32(ew[0])
-    w_off = ew[1].to(torch.int64)
-    w_tx = ew[2].to(torch.int64)
-
-    e_idx = torch.arange(e_cap, dtype=torch.int64, device=dev)
-    valid = e_idx < total_expansion
-    slot = e_idx - w_off
-    if cull_on:
-        pos = _select_nth_set_bit(_to_u32(ew[3]), _to_u32(ew[4]),
-                                  torch.clamp(slot, min=0))
-        # large rects (identity mask, may exceed 64 positions): p == slot
-        pos = torch.where(slot >= CULL_POSITIONS, slot, pos)
+    if _culling(attrs, settings):
+        key = entry_keys(ew, total_expansion, ntx)
     else:
-        pos = slot
-    tiles_x = torch.clamp(w_tx, min=1)
-    q = torch.div(pos, tiles_x, rounding_mode="floor")
-    r = pos - q * tiles_x
-
-    key = torch.where(valid, (w_key + ((q * ntx + r) << 16)) & MASK32,
-                      SENTINEL_KEY)
+        e_idx = torch.arange(e_cap, dtype=torch.int64, device=ew.device)
+        key = _entry_key(_to_u32(ew[0]), e_idx - ew[1].to(torch.int64),
+                         ew[2].to(torch.int64), e_idx < total_expansion, ntx)
     return key, g, counts, total_expansion, keep, demand
 
 
