@@ -79,7 +79,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
   6. realistic size: one frame and 3 train steps of 1M Gaussians at
      sh_deg 3, 1920x1080, and the forward, backward, tile-loss, expand
      and tile-cull kernels against their plain versions at that frame's
-     and step's inputs;
+     and step's inputs; one full-SH step (every SH coefficient trained
+     through the SH stage's VJP) beside the DC step from the same state,
+     held against the same full-SH step with every kernel of the step
+     swapped for its plain version on the card;
   6b. banded: the 1M sh3 scene at DCI 8K (8192x4320, 69,120 tiles, over
      the 16-bit tile-key limit: 2 bands) through Viewer.render and through
      render_banded in both modes, run in sync debug mode "error" (every
@@ -280,6 +283,86 @@ def evaluated_pairs(fwd_tiles, tile_offsets, settings) -> int:
     sat = fwd_tiles[:, 4] < settings.t_threshold
     per_px = torch.where(sat, fwd_tiles[:, 5].to(torch.float64), cnt)
     return int(per_px.sum())
+
+
+# each training kernel's CUDA entry and its plain version, by module of
+# webdgs_tpu_torch.ops: swapped in (plain_kernels), a step runs its plain
+# versions on the card
+PLAIN_ROUTES = (("rasterize", "_rasterize_tiles_cuda", "rasterize_tiles_plain"),
+                ("rasterize", "_rasterize_tiles_backward_cuda",
+                 "rasterize_tiles_backward_plain"),
+                ("tile_loss", "_tile_loss_cuda", "tile_loss_gradient_plain"),
+                ("segsum", "_segment_sum_rows_cuda", "segment_sum_rows_plain"),
+                ("expand", "_expand_fields_cuda", "expand_fields_plain"),
+                ("binning", "_cull_words_cuda", "cull_words_plain"),
+                ("binning", "_entry_keys_cuda", "entry_keys_plain"))
+
+
+class plain_kernels:
+    """Within the block every kernel of PLAIN_ROUTES runs its plain
+    version, on the tensors' own device."""
+
+    def __enter__(self):
+        import importlib
+        self.saved = []
+        for mod_name, entry, plain in PLAIN_ROUTES:
+            mod = importlib.import_module(f"webdgs_tpu_torch.ops.{mod_name}")
+            self.saved.append((mod, entry, getattr(mod, entry)))
+            setattr(mod, entry, getattr(mod, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, entry, fn in self.saved:
+            setattr(mod, entry, fn)
+        return False
+
+
+def full_sh_step_check(scene, cam, target, w: int, h: int, settings,
+                       cap: int) -> dict:
+    """[realistic]: one train_step training every SH coefficient (the SH
+    stage's VJP, the rest bands at ``sh_rest_lr_scale``) beside the DC
+    step, from one state on one view at one capacity, each timed after a
+    warm-up; and the full-SH step again with every kernel swapped for its
+    plain version on the card.  Its first moments (0.1 g) must agree with
+    the kernels' at the small step's bound, and only the full-SH step may
+    move the rest bands' lanes (14:59 of the packed rows)."""
+    import torch
+    from webdgs_tpu_torch.ops.adam import AdamHyperparameters, init_adam_state
+    from webdgs_tpu_torch.train.step import train_step
+
+    opt0 = init_adam_state(scene.params())
+    kw = dict(img_w=w, img_h=h, settings=settings, entry_capacity=cap)
+    res, ms = {}, {}
+    for label, full in (("dc", False), ("full_sh", True)):
+        hp = AdamHyperparameters(full_sh=full)
+        train_step(scene, opt0, cam, target, hp=hp, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[label] = train_step(scene, opt0, cam, target, hp=hp, **kw)
+        torch.cuda.synchronize()
+        ms[label] = 1e3 * (time.perf_counter() - t0)
+    with plain_kernels():
+        plain = train_step(scene, opt0, cam, target,
+                           hp=AdamHyperparameters(full_sh=True), **kw)
+    m_full, m_dc = res["full_sh"].opt_state.m, res["dc"].opt_state.m
+    err = max_rel(m_full * 10.0, plain.opt_state.m * 10.0)
+    loss_rel = abs(float(res["full_sh"].metrics["loss"])
+                   - float(plain.metrics["loss"])) \
+        / abs(float(plain.metrics["loss"]))
+    rest = float(m_full[:, 14:].abs().max())
+    check(rest > 0 and not bool(m_dc[:, 14:].any()),
+          f"full SH left the rest bands' moments at 0 ({rest}), or DC "
+          "moved them")
+    check(bool(torch.isfinite(m_full).all()), "full-SH moments not finite")
+    check(err <= 1e-3 and loss_rel <= 1e-4,
+          f"full-SH step, kernels vs plain versions: gradient {err}, loss "
+          f"rel {loss_rel}")
+    print(f"[realistic] 1M sh3 {w}x{h}, one train_step from one state: DC "
+          f"{ms['dc']:.2f} ms, full SH {ms['full_sh']:.2f} ms; full SH "
+          f"with the kernels vs their plain versions on the card: gradient "
+          f"scaled err {err:.2e}, loss rel err {loss_rel:.2e}; largest "
+          f"rest-band |m| {rest:.3e} (DC: 0)", flush=True)
+    return {"dc_ms": ms["dc"], "full_sh_ms": ms["full_sh"], "err": err}
 
 
 def max_rel(a, b) -> float:
@@ -3336,7 +3419,9 @@ def main(argv: list[str] | None = None) -> int:
           f"{big_steps[-1]:.2f} ms/step); loss {float(m_big['loss']):.5f}; "
           f"{int(m_big['tile_entries'])} entries, capacity {cap1m}; peak "
           f"device memory {peak_gb:.2f} GiB", flush=True)
-    del v1m, img1m, s_big, o_big, target1m
+    del s_big, o_big
+    full_sh_step_check(big, cam1m, target1m, 1920, 1080, s1m, cap1m)
+    del v1m, img1m, target1m
     torch.cuda.empty_cache()
 
     # --- 6b. the serial-band renderer at DCI 8K; 6c. data parallelism ---

@@ -736,21 +736,24 @@ def test_importance_runs_without_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got, timp.entry_counts_plain(*args, ntx, nty, s))
 
-def test_train_step_on_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("full_sh,sh_deg", [(False, 0), (True, 3)])
+def test_train_step_on_cuda_matches_cpu(cuda, full_sh, sh_deg):
     """One training step on the card against the same step on the CPU:
-    the metrics and the gradients' first moments agree."""
-    from webdgs_tpu_torch.ops.adam import init_adam_state
+    the metrics and the gradients' first moments agree (full SH: every
+    coefficient trained through the SH stage's VJP)."""
+    from webdgs_tpu_torch.ops.adam import AdamHyperparameters, init_adam_state
     from webdgs_tpu_torch.train.step import train_step
     w, h = 96, 80
-    ts = _scene(400, seed=15, spread=1.5)
+    ts = _scene(400, seed=15, spread=1.5, sh_deg=sh_deg)
     rng = np.random.default_rng(16)
     target = torch.tensor(rng.random((h, w, 3)), dtype=torch.float32)
+    hp = AdamHyperparameters(full_sh=full_sh)
     res = {}
     for dev in ("cpu", cuda):
         sc = ts.to(dev)
         cam = default_camera(w, h, position=(0.0, 0.0, -5.0), device=dev)
         res[str(dev)] = train_step(sc, init_adam_state(sc.params()), cam,
-                                   target.to(dev), img_w=w, img_h=h)
+                                   target.to(dev), img_w=w, img_h=h, hp=hp)
     c, g = res["cpu"], res[str(cuda)]
     for k in ("l1", "l2", "dssim", "loss", "psnr"):
         assert abs(float(g.metrics[k]) - float(c.metrics[k])) <= \
@@ -758,3 +761,5 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     m_c, m_g = c.opt_state.m, g.opt_state.m.cpu()
     scale = max(float(m_c.abs().max()), 0.1)
     assert float((m_g - m_c).abs().max()) / scale <= 1e-3
+    # the SH rest lanes (14:59 of the packed rows) train only with full SH
+    assert bool(m_g[:, 14:].any()) == full_sh

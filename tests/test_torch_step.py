@@ -46,11 +46,15 @@ def _assert_params_follow_rule(new_t, new_j, m_ref, hp):
         assert rest.mean() < 0.01, f"{k}: {rest.mean():.4f} of coordinates"
 
 
-@pytest.mark.parametrize("w,h,full_sh", [(48, 32, False), (4, 4, True)])
-def test_train_step_matches_jax(w, h, full_sh):
+@pytest.mark.parametrize("w,h,full_sh,sh_deg", [
+    pytest.param(48, 32, False, 1, id="48-32-False"),
+    pytest.param(4, 4, True, 1, id="4-4-True"),
+    # the tiled step training all 48 coefficients: the SH stage's VJP
+    pytest.param(48, 32, True, 3, id="48-32-True-sh3")])
+def test_train_step_matches_jax(w, h, full_sh, sh_deg):
     """Both branches: the tile-loss path (48x32) and, for frames under
     5x5, the image-space path."""
-    js, ts, jc, tc, target, sj, st = _setup(40, 41, w, h, sh_deg=1)
+    js, ts, jc, tc, target, sj, st = _setup(40, 41, w, h, sh_deg=sh_deg)
     hp_j = jadam.AdamHyperparameters(full_sh=full_sh)
     hp_t = tadam.AdamHyperparameters(full_sh=full_sh)
     assert ttl.supports_tile_loss(w, h, st) == (w >= 5)

@@ -29,7 +29,8 @@ W, H = 64, 48
 STEP_SPANS = {("train.step", None), ("project", "train.step"),
               ("bin", "train.step"), ("raster", "train.step"),
               ("loss", "train.step"), ("backward", "train.step"),
-              ("project_vjp", "train.step"), ("adam", "train.step"),
+              ("sh_vjp", "train.step"), ("project_vjp", "train.step"),
+              ("adam", "train.step"),
               ("wait.entry_cap", "train.step"), ("wait.rate", "train.step")}
 EVENT_SPANS = {("densify.event", "train.step"),
                ("densify.grow", "densify.event"),
@@ -128,8 +129,8 @@ def test_training_spans_across_an_event():
     steps = [s for s in spans if s.name == "train.step"]
     assert len(steps) == 3
     assert sum(s.name == "densify.event" for s in spans) == 1
-    for name in ("project", "bin", "raster", "backward", "project_vjp",
-                 "adam"):
+    for name in ("project", "bin", "raster", "backward", "sh_vjp",
+                 "project_vjp", "adam"):
         assert sum(s.name == name for s in spans) == 3, name
 
 

@@ -44,6 +44,7 @@ def _assert_grads_close(got, want):
 @pytest.mark.parametrize("sh_deg,parity_sh,radius", [
     (0, True, 128.0),
     (2, False, 3.0),  # autodiff through SH; radius-capped Gaussians
+    (3, False, 128.0),  # every SH band through the colour stage's VJP
 ])
 def test_param_grads_tiled_match_jax(sh_deg, parity_sh, radius):
     w, h = 48, 32

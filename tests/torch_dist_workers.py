@@ -247,6 +247,31 @@ def case_gs_step(mesh, inp, out_dir):
     return out
 
 
+def case_gs_step_full_sh(mesh, inp, out_dir):
+    """gs_train_step with every SH coefficient trained (``full_sh``, the
+    colour's VJP as a stage of its own) at ``inp["sh_deg"]``, and the
+    port's single-device train_step of the same step beside it."""
+    w, h = inp["w"], inp["h"]
+    cam = default_camera(w, h, position=(0.0, 0.0, -5.0), device="cpu")
+    target = torch.tensor(inp["target"])
+    hp = AdamHyperparameters(full_sh=True)
+    n = inp["params"]["means"].shape[0]
+    scene = scene_from_numpy(inp["params"], np.ones(n, bool), inp["sh_deg"],
+                             "cpu")
+    new = gs_train_step(
+        gaussian_shard(scene, mesh),
+        gaussian_shard(init_adam_state(scene.params()), mesh), cam, target,
+        mesh, img_w=w, img_h=h, hp=hp, settings=SETTINGS_EXACT,
+        parity_sh=False)
+    ref = train_step(scene, init_adam_state(scene.params()), cam, target,
+                     img_w=w, img_h=h, hp=hp, settings=SETTINGS_EXACT)
+    return {**_params("gs_p_", new.scene.params()),
+            "gs_m": _np(new.opt_state.m), "gs_v": _np(new.opt_state.v),
+            **_params("single_p_", ref.scene.params()),
+            "single_m": _np(ref.opt_state.m),
+            "single_v": _np(ref.opt_state.v)}
+
+
 def case_gs_mesh2d(mesh, inp, out_dir):
     """On a (V, B) dp x band mesh: one gs_train_step over V views; and over
     all the ranks as one band group (the 1D view of the same processes)
@@ -444,6 +469,7 @@ def case_gs_rollback(mesh, inp, out_dir):
 CASES = {"tile_sharded": case_tile_sharded, "dp_step": case_dp_step,
          "trainer": case_trainer, "trainer_densify": case_trainer_densify,
          "gs_render": case_gs_render, "gs_step": case_gs_step,
+         "gs_step_full_sh": case_gs_step_full_sh,
          "gs_mesh2d": case_gs_mesh2d, "gs_rebalance": case_gs_rebalance,
          "gs_event": case_gs_event, "gs_trainer": case_gs_trainer,
          "gs_adaptive": case_gs_adaptive, "gs_rollback": case_gs_rollback}

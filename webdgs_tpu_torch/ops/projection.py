@@ -9,7 +9,9 @@ the SH colour inputs under ``detach_color`` (:313-316) and the depth
 R S^2 R^T from an unnormalised quaternion; EWA 2D covariance with the
 1.3*fov frustum clamp and +0.3 dilation; opacity-aware SnugBox extents
 capped at ``max_splat_radius_px``; 2 px tile margin; at most
-``max_tiles_per_gaussian`` tiles; SH colour clamped to [0, 1].
+``max_tiles_per_gaussian`` tiles; SH colour clamped to [0, 1].  The
+colour is a stage of its own (:func:`project_geometry`, then
+:func:`sh_color`), so that the training step can take its VJP apart.
 """
 
 from __future__ import annotations
@@ -104,11 +106,46 @@ def project_gaussians(
     viewer's live scale knob); ``detach_color`` stops gradients through
     the SH colour evaluation, into the coefficients and the view
     direction."""
+    attrs, aux, dirs = project_geometry(params, alive, camera, img_w, img_h,
+                                        settings, gaussian_scaling)
+    sh = params["sh"]
+    if detach_color:
+        sh = sh.detach()
+        dirs = tuple(d.detach() for d in dirs)
+    return attrs._replace(color=sh_color(sh, dirs, sh_deg)), aux
+
+
+def sh_color(sh: torch.Tensor, dirs, sh_deg: int) -> torch.Tensor:
+    """The SH colour stage: (N, 3) in [0, 1] from the (N, 16, 3)
+    coefficients and the three (N,) unit-direction rows.  The 48 planar
+    rows are taken by ``unbind`` of the (48, N) view, whose backward is
+    one stack of whole rows (a transposed (N, 16, 3) gradient); a row read
+    by indexing would have a backward that writes a whole (48, N) tensor
+    per row, and a stack into (N, 48) columns writes at a stride of 48."""
+    rows = sh.reshape(sh.shape[0], 48).T.unbind(0)
+    col0, col1, col2 = eval_sh_color_rows(rows, *dirs, sh_deg)
+    return torch.stack([torch.clamp(col0, 0.0, 1.0),
+                        torch.clamp(col1, 0.0, 1.0),
+                        torch.clamp(col2, 0.0, 1.0)], dim=-1)
+
+
+def project_geometry(
+    params: dict[str, torch.Tensor],
+    alive: torch.Tensor,
+    camera: Camera,
+    img_w: int,
+    img_h: int,
+    settings: RenderSettings,
+    gaussian_scaling: float | None = None,
+) -> tuple[SplatAttrs, SplatAux, tuple]:
+    """Everything of :func:`project_gaussians` but the colour: the
+    attributes with ``color`` None, the aux, and the unit view-direction
+    rows (dx, dy, dz) from the camera to each mean, which
+    :func:`sh_color` takes.  The SH coefficients are not read."""
     means = params["means"]
     quats = params["quats"]
     log_scales = params["log_scales"]
     opacity_logits = params["opacity_logits"]
-    sh = params["sh"]
     dev = means.device
 
     view, proj = camera.view, camera.proj
@@ -258,24 +295,16 @@ def project_gaussians(
     visible = valid_so_far & on_screen & bbox_ok & tiles_ok
     num_tiles = torch.where(visible, num_tiles, 0).to(torch.int32)
 
-    # --- SH colour ---
+    # --- the SH colour's view directions ---
     cam_pos = camera.cam_pos
     r0, r1, r2 = m0 - cam_pos[0], m1 - cam_pos[1], m2 - cam_pos[2]
     norm = torch.sqrt(torch.clamp(r0 * r0 + r1 * r1 + r2 * r2, min=1e-24))
-    dx, dy, dz = r0 / norm, r1 / norm, r2 / norm
-    sh_planar = sh.reshape(sh.shape[0], 48).T
-    if detach_color:
-        sh_planar = sh_planar.detach()
-        dx, dy, dz = dx.detach(), dy.detach(), dz.detach()
-    col0, col1, col2 = eval_sh_color_rows(sh_planar, dx, dy, dz, sh_deg)
-    color = torch.stack([torch.clamp(col0, 0.0, 1.0),
-                         torch.clamp(col1, 0.0, 1.0),
-                         torch.clamp(col2, 0.0, 1.0)], dim=-1)
+    dirs = (r0 / norm, r1 / norm, r2 / norm)
 
     attrs = SplatAttrs(
         center_px=torch.stack([cx, cy], dim=-1),
         conic=torch.stack([conic_a, conic_b, conic_c], dim=-1),
-        color=color,
+        color=None,
         opacity=opacity,
         extents=torch.stack([x_extent_cap, y_extent_cap], dim=-1),
     )
@@ -287,7 +316,7 @@ def project_gaussians(
         num_tiles=num_tiles,
         radius_capped=radius_capped & visible,
     )
-    return attrs, aux
+    return attrs, aux, dirs
 
 
 def restrict_aux_to_band(aux: SplatAux, row0: int | torch.Tensor,

@@ -70,12 +70,12 @@ def sh_basis_rows(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     return tuple(out[:k])
 
 
-def eval_sh_color_rows(sh_planar: torch.Tensor, x: torch.Tensor,
-                       y: torch.Tensor, z: torch.Tensor, sh_deg: int):
+def eval_sh_color_rows(sh_planar, x: torch.Tensor, y: torch.Tensor,
+                       z: torch.Tensor, sh_deg: int):
     """Three (N,) colour rows from planar (48, N) coefficients (row
     ``3*k + c`` is coefficient ``k``, channel ``c``, i.e.
-    ``sh.reshape(N, 48).T``) and unit-direction rows; adds 0.5 and clamps
-    at 0 from below."""
+    ``sh.reshape(N, 48).T``), or the sequence of those 48 rows, and
+    unit-direction rows; adds 0.5 and clamps at 0 from below."""
     if not 0 <= sh_deg <= 3:
         raise ValueError(f"unsupported sh_deg {sh_deg}")
     k = NUM_COEFFS[sh_deg]

@@ -656,8 +656,8 @@ def gs_train_step(scene: GaussianScene, opt_state: AdamState, camera,
     th = settings.tile_h
     band_h = plan.rows * th
 
-    params, attrs, leaves, aux = _project(scene, camera, img_w, img_h,
-                                          settings, parity_sh)
+    params, attrs, leaves, aux, stage = _project(scene, camera, img_w,
+                                                 img_h, settings, parity_sh)
     ex = _exchange_layout(leaves, aux, plan, mesh, settings)
     out = _band_tiles(leaves, ex, plan, mesh, settings, track_ncontrib=False)
     if supports_tile_loss(img_w, img_h, settings):
@@ -698,7 +698,7 @@ def gs_train_step(scene: GaussianScene, opt_state: AdamState, camera,
         dv = torch.where(row_valid, diff_ext[own], 0.0)
         ds_own = torch.where(row_valid, (1.0 - sm_ext[own]) * 0.5, 0.0)
         parts = torch.stack([dv.abs().sum(), (dv * dv).sum(), ds_own.sum()])
-    d_params = _project_vjp(params, attrs, d_attrs, aux, parity_sh)
+    d_params = _project_vjp(params, attrs, d_attrs, aux, stage)
 
     # two collectives over the band group: the loss partials with the
     # counts (float64 holds both exactly), then the maxima

@@ -28,6 +28,7 @@ while tracing is on (``slots.alive`` and ``slots.capacity`` at each
 
 The spans (parent in brackets): ``train.step``; ``project``, ``bin``,
 ``raster`` [a step or ``view.frame``]; ``loss``, ``backward``,
+``sh_vjp`` (the SH colour's VJP, opened just before ``project_vjp``),
 ``project_vjp``, ``adam``, ``wait.entry_cap``, ``wait.rate``,
 ``densify.event`` [``train.step``]; ``densify.grow``,
 ``densify.importance``, ``densify.prune``, ``wait.event_counts``

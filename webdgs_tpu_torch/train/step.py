@@ -1,14 +1,18 @@
-"""The training step: forward render, loss cotangent, two-stage VJP, Adam
+"""The training step: forward render, loss cotangent, staged VJP, Adam
 update (counterpart of webdgs_tpu/train/step.py:45-168).
 
-The gradient flows in two stages, as in the reference:
+The gradient flows in stages, as in the reference:
 1. the render's VJP with respect to the projected ``SplatAttrs`` (made
    detached leaves that require grad), through the rasterizer's backward
    kernel and the per-Gaussian segment sum;
-2. ``torch.autograd.grad`` of the projection at those cotangents.
-Stage 1 is needed because, with ``detach_color`` (DC-only SH), the colour
-has no path to the parameters, yet the raw dL/dcolor is routed into the SH
-DC coefficient (``_apply_grad_parity``).  Frames of at least 5x5 take the
+2. the SH colour's VJP (span ``sh_vjp``): with full SH, autograd of the
+   colour stage, evaluated from the coefficients and from direction
+   leaves of its own, gives the coefficients' gradient and the
+   directions' cotangents; with DC only the colour has no path to the
+   parameters, and the raw dL/dcolor is routed into the DC coefficient;
+3. ``torch.autograd.grad`` of the geometric projection at the attribute
+   and direction cotangents (span ``project_vjp``).
+Stage 1 is needed for that routing.  Frames of at least 5x5 take the
 tile-loss kernel; smaller ones the image-space loss.
 """
 
@@ -27,7 +31,8 @@ from webdgs_tpu_torch.ops import rasterize as raster_ops
 from webdgs_tpu_torch.ops.adam import AdamHyperparameters, AdamState, adam_step
 from webdgs_tpu_torch.ops.loss import (LossConfig, loss_metrics,
                                        pixel_loss_gradient)
-from webdgs_tpu_torch.ops.projection import SplatAttrs, project_gaussians
+from webdgs_tpu_torch.ops.projection import (SplatAttrs, project_geometry,
+                                             sh_color)
 from webdgs_tpu_torch.ops.tile_loss import (supports_tile_loss,
                                             tile_loss_gradient)
 from webdgs_tpu_torch.render.renderer import render_from_attrs
@@ -39,18 +44,43 @@ class TrainStepResult(NamedTuple):
     metrics: dict[str, torch.Tensor]
 
 
+# the attributes the geometric projection produces; the colour is the SH
+# stage's
+_GEOMETRY = ("center_px", "conic", "opacity", "extents")
+
+
+class ColorStage(NamedTuple):
+    """The full-SH colour's inputs held apart from the geometry graph: the
+    direction rows the geometry produced, and the leaves the colour was
+    evaluated from (the coefficients are the ``sh`` parameter leaf)."""
+
+    dirs: tuple[torch.Tensor, ...]
+    dir_leaves: tuple[torch.Tensor, ...]
+
+
 def _project(scene, camera, img_w, img_h, settings, parity_sh):
-    """Stage-2 graph: parameter leaves -> SplatAttrs, plus stage-1 leaves
-    (detached copies of the attributes that require grad)."""
+    """Stage-2 and stage-3 graphs: parameter leaves -> the geometric
+    attributes and the view directions, and the colour from the SH leaf
+    and direction leaves of its own (DC only: detached); plus the stage-1
+    leaves (detached copies of the attributes that require grad) and the
+    colour's :class:`ColorStage` (None with DC only)."""
     with trace.span("project"):
         params = {k: v.detach().requires_grad_(True)
                   for k, v in scene.params().items()}
-        attrs, aux = project_gaussians(params, scene.alive, camera, img_w,
-                                       img_h, scene.sh_deg, settings,
-                                       detach_color=parity_sh)
+        geo, aux, dirs = project_geometry(params, scene.alive, camera,
+                                          img_w, img_h, settings)
+        if parity_sh:
+            stage = None
+            color = sh_color(params["sh"].detach(),
+                             tuple(d.detach() for d in dirs), scene.sh_deg)
+        else:
+            stage = ColorStage(dirs, tuple(d.detach().requires_grad_(True)
+                                           for d in dirs))
+            color = sh_color(params["sh"], stage.dir_leaves, scene.sh_deg)
+        attrs = geo._replace(color=color)
         leaves = SplatAttrs(*(a.detach().requires_grad_(True)
                               for a in attrs))
-    return params, attrs, leaves, aux
+    return params, attrs, leaves, aux, stage
 
 
 def _vjp(outputs, inputs, cotangent):
@@ -63,10 +93,30 @@ def _vjp(outputs, inputs, cotangent):
                 for x, g in zip(inputs, grads)]
 
 
-def _param_grads(params, attrs, d_attrs):
-    """Stage 2: the projection's VJP at the attribute cotangents."""
-    pairs = [(a, d) for a, d in zip(attrs, d_attrs) if a.requires_grad]
-    names = list(params)
+def _sh_vjp(params, attrs, d_attrs, stage):
+    """Stage 2: the coefficients' gradient and (direction row, cotangent)
+    pairs for stage 3.  DC only: the raw dL/dcolor into the DC
+    coefficient, and no pairs."""
+    if stage is None:
+        d_sh = torch.zeros_like(params["sh"])
+        d_sh[:, 0, :] = d_attrs.color
+        return d_sh, []
+    d_sh, *d_dirs = torch.autograd.grad(
+        attrs.color, [params["sh"], *stage.dir_leaves],
+        grad_outputs=d_attrs.color, allow_unused=True)
+    # the stack of the colour's planar rows is (N, 16, 3) transposed; Adam
+    # packs rows.  sh_deg 0 reads no direction
+    return d_sh.contiguous(), [(d, g) for d, g in zip(stage.dirs, d_dirs)
+                               if g is not None]
+
+
+def _param_grads(params, attrs, d_attrs, dir_pairs):
+    """Stage 3: the geometric projection's VJP at the attribute cotangents
+    and the directions' cotangents, for every parameter but the SH
+    coefficients, which the geometry does not read."""
+    pairs = [(getattr(attrs, k), getattr(d_attrs, k))
+             for k in _GEOMETRY] + dir_pairs
+    names = [k for k in params if k != "sh"]
     grads = torch.autograd.grad([a for a, _ in pairs], [params[k]
                                                         for k in names],
                                 grad_outputs=[d for _, d in pairs],
@@ -75,24 +125,18 @@ def _param_grads(params, attrs, d_attrs):
             for k, g in zip(names, grads)}
 
 
-def _apply_grad_parity(d_params, d_attrs, aux, params, parity_sh):
-    """The SH routing and the screen-radius-cap guard, shared by both loss
-    paths."""
-    if parity_sh:
-        # raw dL/dcolor straight into the DC coefficient
-        d_sh = torch.zeros_like(params["sh"])
-        d_sh[:, 0, :] = d_attrs.color
-        d_params = {**d_params, "sh": d_sh}
-    g_ls = d_params["log_scales"]
-    return {**d_params, "log_scales": torch.where(
-        aux.radius_capped[:, None], torch.clamp(g_ls, min=0.0), g_ls)}
-
-
-def _project_vjp(params, attrs, d_attrs, aux, parity_sh):
-    """Stage 2 and the gradient routing: the parameters' gradients."""
+def _project_vjp(params, attrs, d_attrs, aux, stage):
+    """Stages 2 and 3 and the screen-radius-cap guard, shared by both loss
+    paths: the parameters' gradients."""
+    with trace.span("sh_vjp"):
+        d_sh, dir_pairs = _sh_vjp(params, attrs, d_attrs, stage)
     with trace.span("project_vjp"):
-        d_params = _param_grads(params, attrs, d_attrs)
-        return _apply_grad_parity(d_params, d_attrs, aux, params, parity_sh)
+        d_params = _param_grads(params, attrs, d_attrs, dir_pairs)
+        g_ls = d_params["log_scales"]
+        d_params["log_scales"] = torch.where(
+            aux.radius_capped[:, None], torch.clamp(g_ls, min=0.0), g_ls)
+        d_params["sh"] = d_sh
+        return d_params
 
 
 def compute_param_grads(scene: GaussianScene, camera: Camera,
@@ -101,8 +145,8 @@ def compute_param_grads(scene: GaussianScene, camera: Camera,
                         parity_sh: bool, entry_capacity: int | None = None):
     """Image-space loss path.  Returns (image, param grads dict, aux,
     entry_demand) -- the last is the binning's pre-drop entry demand."""
-    params, attrs, leaves, aux = _project(scene, camera, img_w, img_h,
-                                          settings, parity_sh)
+    params, attrs, leaves, aux, stage = _project(scene, camera, img_w,
+                                                 img_h, settings, parity_sh)
     ntx, nty = binning_ops.tile_grid(img_w, img_h, settings)
     out, bins = render_from_attrs(leaves, aux, img_w, img_h, settings,
                                   entry_capacity, for_grad=True)
@@ -111,7 +155,7 @@ def compute_param_grads(scene: GaussianScene, camera: Camera,
     with trace.span("loss"):
         pgrad = pixel_loss_gradient(image.detach(), target, loss_cfg)
     d_attrs = SplatAttrs(*_vjp(image, list(leaves), pgrad))
-    d_params = _project_vjp(params, attrs, d_attrs, aux, parity_sh)
+    d_params = _project_vjp(params, attrs, d_attrs, aux, stage)
     return image.detach(), d_params, aux, bins.expansion_entries
 
 
@@ -122,8 +166,8 @@ def compute_param_grads_tiled(scene: GaussianScene, camera: Camera,
                               entry_capacity: int | None = None):
     """Tile-loss path: the loss cotangent is computed on the rasterizer's
     tile buffer.  Returns (metrics, param grads dict, aux, entry_demand)."""
-    params, attrs, leaves, aux = _project(scene, camera, img_w, img_h,
-                                          settings, parity_sh)
+    params, attrs, leaves, aux, stage = _project(scene, camera, img_w,
+                                                 img_h, settings, parity_sh)
     ntx, nty = binning_ops.tile_grid(img_w, img_h, settings)
     out, bins = render_from_attrs(leaves, aux, img_w, img_h, settings,
                                   entry_capacity, for_grad=True)
@@ -132,7 +176,7 @@ def compute_param_grads_tiled(scene: GaussianScene, camera: Camera,
                                            img_h, ntx, nty, loss_cfg,
                                            settings)
     d_attrs = SplatAttrs(*_vjp(out, list(leaves), dpix))
-    d_params = _project_vjp(params, attrs, d_attrs, aux, parity_sh)
+    d_params = _project_vjp(params, attrs, d_attrs, aux, stage)
     return metrics, d_params, aux, bins.expansion_entries
 
 
