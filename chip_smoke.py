@@ -65,7 +65,14 @@ Phases (any failure raises, and the script exits non-zero with no result):
      "error" (no call may wait for the device);
      the tile cull's two kernels (cull_words, entry_keys) against the
      plain chains run on the same CUDA tensors at the bench step, every
-     word, count and key equal, timed back to back and queued;
+     word, count and key equal, timed back to back and queued; the Adam
+     kernel against adam_step_plain on the same CUDA tensors at the bench
+     step's gradients (three steps, the moments carried) and at 2,961,408
+     random rows (DC only and full SH): every lane outside the quaternion
+     equal, the quaternion within 2 ulp, the largest difference over
+     every lane measured, a repeat bit-identical, run in sync debug mode
+     "error", each timed back to back and queued beside its bound of
+     1,656 bytes a row (1,476 with DC only);
   4. the viewer slice: a Viewer renders 5 bench frames through the render
      kernels (their launch counters are reset just before and must grow),
      and a small frame rendered on the card matches the plain CPU render;
@@ -73,7 +80,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
      render, capacity 1.2x the observed entries), 20 train_steps through
      all five kernels (every counter reset just before and must grow),
      finite parameters and loss, one step's synchronizing calls tallied
-     by line (none may come from ops/rasterize.py), one step from one
+     by line (none may come from ops/rasterize.py or ops/adam.py), one
+     step from one
      state twice giving bit-identical parameters, and a small step on the
      card matching the CPU;
   6. realistic size: one frame and 3 train steps of 1M Gaussians at
@@ -106,8 +114,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
      the reference test's f16 class with the f16 one (ms per frame); 3
      gs_train_steps through all five training kernels (counters reset
      just before), ms per step, peak memory, one step's synchronizing
-     calls by line (at most adam_step's 3, none from
-     parallel/sharding.py) and the adaptive-capacity metrics; one f32 step
+     calls by line (none) and the adaptive-capacity metrics; one f32 step
      against train_step (rtol 2e-4 / atol 2e-6) and twice from one state
      (bit-identical), the f16 step's loss within rtol 2e-3; one step on a
      1x1 dp x band mesh;
@@ -295,7 +302,8 @@ PLAIN_ROUTES = (("rasterize", "_rasterize_tiles_cuda", "rasterize_tiles_plain"),
                 ("segsum", "_segment_sum_rows_cuda", "segment_sum_rows_plain"),
                 ("expand", "_expand_fields_cuda", "expand_fields_plain"),
                 ("binning", "_cull_words_cuda", "cull_words_plain"),
-                ("binning", "_entry_keys_cuda", "entry_keys_plain"))
+                ("binning", "_entry_keys_cuda", "entry_keys_plain"),
+                ("adam", "_adam_step_cuda", "adam_step_plain"))
 
 
 class plain_kernels:
@@ -378,13 +386,14 @@ KERNEL_COUNTERS = (("expand_fields", "expand_fields"),
                    ("segment_sum_rows", "segment_sum_rows"),
                    ("entry_counts", "entry_counts"),
                    ("cull_words", "cull_words"),
-                   ("entry_keys", "entry_keys"))
+                   ("entry_keys", "entry_keys"),
+                   ("adam_step", "adam_step"))
 # the kernels each path must launch: a viewer frame, a training step (the
-# densify run, steps and events, launches all eight)
+# densify run, steps and events, launches all nine)
 VIEWER_KERNELS = ("expand_fields", "rasterize_tiles", "cull_words",
                   "entry_keys")
 TRAIN_KERNELS = VIEWER_KERNELS + ("tile_loss", "rasterize_tiles_backward",
-                                  "segment_sum_rows")
+                                  "segment_sum_rows", "adam_step")
 
 
 def kernel_counters() -> dict:
@@ -1312,6 +1321,113 @@ def cull_check(label: str, attrs, aux, ntx: int, e_cap: int, settings,
           f"{ek['ms']:.4f} ms, queued {ek['device_ms']:.4f} ms, plain "
           f"{ek['plain_ms']:.4f} ms, bound {ek['bound'][0]:.4f} ms "
           f"({ek['bound'][1]})", flush=True)
+    return res
+
+
+def adam_row_bytes(full_sh: bool) -> int:
+    """Bytes of Adam's update a row: p, g, m and v read (59 float32 lanes
+    each) and the tile count; p, m and v written.  With the DC coefficient
+    alone the gradient's 45 SH rest lanes are not read."""
+    return 4 * 59 * 4 + 4 + 3 * 59 * 4 - (0 if full_sh else 45 * 4)
+
+
+def random_adam_rows(n: int, dev, seed: int):
+    """Parameters, gradients (std 1e-2) and tile counts (about a third 0)
+    of ``n`` rows, drawn on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {"means": (n, 3), "quats": (n, 4), "log_scales": (n, 3),
+              "opacity_logits": (n,), "sh": (n, 16, 3)}
+    params = {k: torch.randn(s, generator=gen, device=dev)
+              for k, s in shapes.items()}
+    grads = {k: 1e-2 * torch.randn(s, generator=gen, device=dev)
+             for k, s in shapes.items()}
+    counts = torch.randint(0, 3, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return params, grads, counts
+
+
+def adam_check(label: str, params, grads, counts, hps: dict,
+               plain_iters: int) -> dict:
+    """The Adam kernel against adam_step_plain on the same CUDA tensors,
+    for each of ``hps`` ({label: AdamHyperparameters}), three steps with
+    the moments carried, each step from the plain chain's state: every lane
+    outside the quaternion and both moments equal, the quaternion within 2
+    ulp, frozen rows their inputs, a repeat bit-identical, the wrapper run
+    in sync debug mode "error"; ``err`` is the largest absolute difference
+    from the chain over every lane of p, m and v.  Each of ``hps`` timed in
+    turns with the chain, back to back, and the kernel queued, at its third
+    step's inputs, against a bound of adam_row_bytes a row: the first's
+    times at the top level, each one's under ``by_hp``."""
+    import torch
+    from webdgs_tpu_torch.ops import adam
+    n = counts.shape[0]
+    frozen = counts == 0
+    res = {"rows": n, "visible": int((~frozen).sum()), "quat_ulps": 0,
+           "err": 0.0, "by_hp": {}}
+    for name, hp in hps.items():
+        p, st = params, adam.init_adam_state(params)
+        for step in range(3):
+            g = {k: v * (step + 1) for k, v in grads.items()}
+            kp, ks = adam._adam_step_cuda(p, g, st, hp, counts)
+            kp2, ks2 = adam._adam_step_cuda(p, g, st, hp, counts)
+            pp, ps = adam.adam_step_plain(p, g, st, hp, counts)
+            torch.cuda.synchronize()
+            check(all(torch.equal(kp[k], kp2[k]) for k in kp) and
+                  torch.equal(ks.m, ks2.m) and torch.equal(ks.v, ks2.v),
+                  f"adam_step ({label}, {name}) is not bit-identical")
+            diff = {k: int((kp[k] != pp[k]).sum()) for k in kp
+                    if k != "quats"}
+            diff["m"] = int((ks.m != ps.m).sum())
+            diff["v"] = int((ks.v != ps.v).sum())
+            check(not any(diff.values()), f"adam_step ({label}, {name}, "
+                  f"step {step + 1}): values differ from the plain chain "
+                  f"{diff}")
+            res["err"] = max([res["err"]] + [
+                float((a - b).abs().max()) for a, b in (
+                    *((kp[k], pp[k]) for k in kp), (ks.m, ps.m),
+                    (ks.v, ps.v))])
+            ulps = int((kp["quats"].view(torch.int32).to(torch.int64)
+                        - pp["quats"].view(torch.int32).to(torch.int64))
+                       .abs().max())
+            res["quat_ulps"] = max(res["quat_ulps"], ulps)
+            check(ulps <= 2, f"adam_step ({label}, {name}): quaternion "
+                  f"{ulps} ulp from the plain chain")
+            check(all(torch.equal(kp[k][frozen], p[k][frozen]) for k in kp)
+                  and torch.equal(ks.m[frozen], st.m[frozen]),
+                  f"adam_step ({label}, {name}) moved a frozen row")
+            if step < 2:
+                p, st = pp, ps
+            del kp, ks, kp2, ks2, pp, ps
+        g = {k: v * 3 for k, v in grads.items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            adam.adam_step(p, g, st, hp, counts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ms, plain_ms = time_pair(
+            lambda: adam._adam_step_cuda(p, g, st, hp, counts),
+            lambda: adam.adam_step_plain(p, g, st, hp, counts), 20,
+            plain_iters)
+        res["by_hp"][name] = {
+            "ms": ms, "plain_ms": plain_ms,
+            "device_ms": queued_ms(
+                lambda: adam._adam_step_cuda(p, g, st, hp, counts), 20),
+            "bound": bound_ms(adam_row_bytes(hp.full_sh) * n, 0)}
+        del p, st, g
+        torch.cuda.empty_cache()
+    res.update(next(iter(res["by_hp"].values())))
+    times = "; ".join(
+        f"{name} {r['ms']:.4f} ms, queued {r['device_ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]})" for name, r in res["by_hp"].items())
+    print(f"[kernels] adam_step {label}: {n} rows ({res['visible']} "
+          f"visible), {', '.join(hps)}, three steps each; every lane outside "
+          f"the quaternion and both moments equal to the plain chain, the "
+          f"quaternion within {res['quat_ulps']} ulp, max abs err "
+          f"{res['err']:.3g}; bit-identical repeat; sync debug mode "
+          f"\"error\" passed; {times}", flush=True)
     return res
 
 
@@ -2462,7 +2578,7 @@ def cli_shard_phase(tmp: str, data: str, sparse: str, shard: str,
 BENCH_LAUNCHES = {"expand_fields": 40, "rasterize_tiles": 40,
                   "tile_loss_tiles": 20, "rasterize_tiles_backward": 20,
                   "segment_sum_rows": 20, "entry_counts": 0,
-                  "cull_words": 40, "entry_keys": 40}
+                  "cull_words": 40, "entry_keys": 40, "adam_step": 20}
 
 
 def bench_phase(ckpt: str) -> dict:
@@ -2635,8 +2751,8 @@ def gs_phase(dev, big, settings, size=(1920, 1080)) -> dict:
     reference test's f16 class (max < 2e-2, mean < 2e-4), no drops, ms
     per frame; 3 ``gs_train_step``s on a perturbed target through all
     five training kernels (counters reset just before), ms per step, peak
-    memory, one step's synchronizing calls by line (at most adam_step's
-    3, none from parallel/sharding.py), the adaptive-capacity metrics;
+    memory, one step's synchronizing calls by line (none), the
+    adaptive-capacity metrics;
     one f32 step against ``train_step`` (rtol 2e-4 / atol 2e-6) and twice
     from one state (bit-identical), the f16 step's loss within rtol 2e-3;
     and one step on a 1x1 dp x band mesh."""
@@ -2740,15 +2856,13 @@ def gs_phase(dev, big, settings, size=(1920, 1080)) -> dict:
         _, syncs = sync_tally(lambda: gs_train_step(s_cur, o_cur, cam,
                                                     target, mesh, **kw))
         torch.cuda.synchronize()
-        mine = {k: v for k, v in syncs.items() if "parallel/sharding" in k}
-        check(not mine and sum(syncs.values()) <= 3,
-              f"the gs step synchronized: {syncs}")
+        check(not syncs, f"the gs step synchronized: {syncs}")
         print(f"[gs] gs_train_step 1M sh3 {W}x{H}, 1-rank NCCL band group, "
               f"3 steps after a warm-up: {[round(t, 2) for t in step_ms]} "
               f"ms/step; peak {peak_gb:.2f} GiB; loss "
               f"{float(m_cur['loss']):.5f}; capacity {cap}; {adapt}; one "
               f"step waits on the device {sum(syncs.values())} times "
-              f"{syncs}, none from parallel/sharding.py; launches "
+              f"{syncs}; launches "
               f"{launches}", flush=True)
         del s_cur, o_cur
 
@@ -3045,7 +3159,7 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[build] {build_s:.2f} s ({'compiled' if log is not None else 'reused'}"
           f" {lib_path.name})", flush=True)
     for line in (log or "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry function" in line:
             print(f"[build] {line.strip()}")
     if args.before_segsum:
         global BEFORE_SEGSUM
@@ -3200,6 +3314,26 @@ def main(argv: list[str] | None = None) -> int:
     del dk, bk, tfwd, a16g, fwd_g, g_auto
     torch.cuda.empty_cache()
 
+    # Adam at the bench step's gradients (the perturbed target), and at the
+    # largest training cell's 2,961,408 rows
+    from webdgs_tpu_torch.ops.adam import AdamHyperparameters
+    from webdgs_tpu_torch.train.step import compute_param_grads_tiled
+    _, agrads, aaux, _ = compute_param_grads_tiled(
+        scene, cam, target_n, w, h, cfg, settings, parity_sh=True,
+        entry_capacity=cap)
+    agrads = {k: v.detach() for k, v in agrads.items()}
+    adam_bench = adam_check(
+        f"{w}x{h} training step", scene.params(), agrads, aaux.num_tiles,
+        {"dc": AdamHyperparameters(),
+         "full_sh": AdamHyperparameters(full_sh=True, bias_correction=True,
+                                        lr_pos_final=1.6e-6)}, 5)
+    del agrads, aaux
+    adam_big = adam_check(
+        "2,961,408 random rows", *random_adam_rows(2_961_408, dev, 5),
+        {"dc": AdamHyperparameters(),
+         "full_sh": AdamHyperparameters(full_sh=True)}, 2)
+    torch.cuda.empty_cache()
+
     # --- 3c. the importance kernel at the bench scene's metric view ---
     # (a densify event renders each view at half size: 400x300; the target
     # is the bench render plus a fixed numpy noise, downscaled as the
@@ -3294,11 +3428,12 @@ def main(argv: list[str] | None = None) -> int:
                  <= b}
     check(not bwd_syncs, f"the backward raster synchronized: {bwd_syncs}")
     rast_syncs = {k: v for k, v in step_syncs.items()
-                  if "ops/rasterize.py" in k}
-    check(not rast_syncs, f"ops/rasterize.py synchronized: {rast_syncs}")
+                  if "ops/rasterize.py" in k or "ops/adam.py" in k}
+    check(not rast_syncs, f"ops/rasterize.py or ops/adam.py synchronized: "
+          f"{rast_syncs}")
     print(f"[train] one bench train_step waits on the device "
           f"{sum(step_syncs.values())} times {step_syncs}; none from "
-          f"ops/rasterize.py", flush=True)
+          f"ops/rasterize.py or ops/adam.py", flush=True)
     print(f"[train] bench 100k 800x600, 20 train_steps after 2 warm-up: "
           f"{step_ms:.2f} "
           f"ms/step, {1e3 / step_ms:.2f} it/s; loss "
@@ -3708,6 +3843,15 @@ def main(argv: list[str] | None = None) -> int:
                           "before": imp_bench.get("before")}),
         cull_entry("cull_words"),
         cull_entry("entry_keys"),
+        # at the bench step; 2,961,408 random rows beside it
+        entry("adam_step", "webdgs_tpu_torch/csrc/adam.cu",
+              "none (the XLA chain at webdgs_tpu/ops/adam.py:130 adam_step)",
+              adam_bench["err"], adam_bench["ms"], adam_bench["plain_ms"],
+              adam_bench["bound"], None, device_ms=adam_bench["device_ms"],
+              quat_ulps=adam_bench["quat_ulps"], rows=adam_bench["rows"],
+              full_sh=adam_bench["by_hp"]["full_sh"],
+              rows_2_96m={k: adam_big[k] for k in (
+                  "rows", "quat_ulps", "err", "by_hp")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -40,7 +40,7 @@ from tests.torch_parity import (IMG_ATOL, IMG_RTOL, both_cameras,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {"expand_fields", "rasterize_tiles", "tile_loss_tiles",
            "rasterize_tiles_backward", "segment_sum_rows", "entry_counts",
-           "cull_words", "entry_keys"}
+           "cull_words", "entry_keys", "adam_step"}
 # bench.py's keys (:197-208) less sol_fraction, and the port's additions
 LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "vs_target_10x",
              "render_mpix_per_sec_per_chip", "baseline_note", "card",

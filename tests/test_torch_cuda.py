@@ -763,3 +763,87 @@ def test_train_step_on_cuda_matches_cpu(cuda, full_sh, sh_deg):
     assert float((m_g - m_c).abs().max()) / scale <= 1e-3
     # the SH rest lanes (14:59 of the packed rows) train only with full SH
     assert bool(m_g[:, 14:].any()) == full_sh
+
+
+ADAM_OPTS = ({}, {"full_sh": True}, {"bias_correction": True},
+             {"lr_pos_final": 1.6e-6, "lr_pos_decay_steps": 10})
+
+
+def _adam_inputs(n, seed, device):
+    """Parameters, gradients and tile counts (about a third 0) of ``n``
+    rows, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    shapes = {"means": (n, 3), "quats": (n, 4), "log_scales": (n, 3),
+              "opacity_logits": (n,), "sh": (n, 16, 3)}
+    params = {k: torch.tensor(rng.normal(0, 1, s), dtype=torch.float32,
+                              device=device) for k, s in shapes.items()}
+    grads = {k: torch.tensor(rng.normal(0, 1e-2, s), dtype=torch.float32,
+                             device=device) for k, s in shapes.items()}
+    counts = torch.tensor(rng.integers(0, 3, n).astype(np.int32),
+                          device=device)
+    return params, grads, counts
+
+
+def _ulps(a, b):
+    """Largest distance in float32 steps (same-sign values)."""
+    return int((a.view(torch.int32).to(torch.int64)
+                - b.view(torch.int32).to(torch.int64)).abs().max())
+
+
+@pytest.mark.parametrize("n", [1, 7, 50, 100_003])
+@pytest.mark.parametrize("opts", ADAM_OPTS)
+def test_adam_kernel_matches_plain(cuda, opts, n):
+    """The Adam kernel against the torch chain on the same CUDA tensors,
+    three steps with the moments carried: every lane outside the quaternion
+    equal, the quaternion within 2 ulp (its norm sums in another order),
+    frozen rows their inputs bit for bit.  The first step runs in sync
+    debug mode "error": every hyperparameter is a kernel argument, nothing
+    is uploaded, so nothing waits for the device."""
+    from webdgs_tpu_torch.ops import adam as tadam
+    hp = tadam.AdamHyperparameters(**opts)
+    params, grads, counts = _adam_inputs(n, seed=n + len(opts), device=cuda)
+    state = tadam.init_adam_state(params)
+    frozen = counts == 0
+    for step in range(3):
+        g = {k: v * (step + 1) for k, v in grads.items()}
+        launches = kernel_launches()["adam_step"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if step == 0 else "default")
+        try:
+            got_p, got_s = tadam.adam_step(params, g, state, hp, counts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert kernel_launches()["adam_step"] == launches + 1
+        want_p, want_s = tadam.adam_step_plain(params, g, state, hp, counts)
+        assert got_s.iteration == want_s.iteration == step + 1
+        assert torch.equal(got_s.m, want_s.m)
+        assert torch.equal(got_s.v, want_s.v)
+        for k in params:
+            assert got_p[k].shape == want_p[k].shape, k
+            assert got_p[k].is_contiguous(), k
+            if k == "quats":
+                assert _ulps(got_p[k], want_p[k]) <= 2
+            else:
+                assert torch.equal(got_p[k], want_p[k]), k
+            assert torch.equal(got_p[k][frozen], params[k][frozen]), k
+        assert torch.equal(got_s.m[frozen], state.m[frozen])
+        assert torch.equal(got_s.v[frozen], state.v[frozen])
+        params, state = want_p, want_s
+    # with full SH the rest lanes train; with DC only they stay as they are
+    assert bool(state.m[:, 14:].any()) == bool(opts.get("full_sh"))
+
+
+def test_train_step_launches_adam_once(cuda):
+    """One train_step on the card launches the Adam kernel exactly once."""
+    from webdgs_tpu_torch.ops.adam import init_adam_state
+    from webdgs_tpu_torch.train.step import train_step
+    w, h = 96, 80
+    sc = _scene(400, seed=41, spread=1.5).to(cuda)
+    target = torch.rand((h, w, 3), generator=torch.Generator().manual_seed(42))
+    cam = default_camera(w, h, position=(0.0, 0.0, -5.0), device=cuda)
+    launches = kernel_launches()["adam_step"]
+    train_step(sc, init_adam_state(sc.params()), cam, target.to(cuda),
+               img_w=w, img_h=h)
+    torch.cuda.synchronize()
+    assert kernel_launches()["adam_step"] == launches + 1

@@ -203,6 +203,7 @@ def test_adam_step_matches_jax(opts):
     pj = {k: jnp.asarray(v) for k, v in params.items()}
     st = tadam.init_adam_state(pt)
     sj = jadam.init_adam_state(pj)
+    launches = kernel_launches()["adam_step"]
     for step in range(3):  # moments carried across steps
         g = {k: v * (step + 1) for k, v in grads.items()}
         pt, st = tadam.adam_step(pt, {k: t_(v) for k, v in g.items()}, st,
@@ -211,6 +212,8 @@ def test_adam_step_matches_jax(opts):
                                       for k, v in g.items()}, sj, hp_j,
                                  jnp.asarray(counts))
     assert st.iteration == int(sj.iteration) == 3
+    # CPU tensors take adam_step_plain and launch no kernel
+    assert kernel_launches()["adam_step"] == launches
     for k in params:
         np.testing.assert_allclose(np_(pt[k]), np.asarray(pj[k]), rtol=1e-6,
                                    atol=1e-7, err_msg=k)
@@ -224,6 +227,28 @@ def test_adam_step_matches_jax(opts):
                                   params["means"][frozen])
     qn = np.linalg.norm(np_(pt["quats"])[~frozen], axis=1)
     np.testing.assert_allclose(qn, 1.0, rtol=1e-5)
+
+
+def test_adam_step_checks_its_inputs():
+    params, grads, counts = _adam_inputs(7, seed=11)
+    pt = {k: t_(v) for k, v in params.items()}
+    gt = {k: t_(v) for k, v in grads.items()}
+    st = tadam.init_adam_state(pt)
+    tadam._check_adam_inputs(pt, gt, st, t_(counts))
+    with pytest.raises(ValueError, match="d_sh"):
+        tadam._check_adam_inputs(pt, {**gt, "sh": gt["sh"][:, :9]}, st,
+                                 t_(counts))
+    with pytest.raises(TypeError, match="quats"):
+        tadam._check_adam_inputs({**pt, "quats": pt["quats"].double()}, gt,
+                                 st, t_(counts))
+    with pytest.raises(ValueError, match="tile_counts"):
+        tadam._check_adam_inputs(pt, gt, st, t_(counts[:-1]))
+    with pytest.raises(TypeError, match="tile_counts"):
+        tadam._check_adam_inputs(pt, gt, st, t_(counts).long())
+    meta = tadam.AdamState(st.m.to("meta"), st.v.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tadam.adam_step(pt, gt, meta, tadam.AdamHyperparameters(),
+                        t_(counts))
 
 
 def test_pack_layout_roundtrip():

@@ -232,12 +232,14 @@ def test_slot_gauges_only_while_tracing():
 def test_kernel_launches_are_tracer_counters():
     before = kernel_launches()
     assert tuple(before) == KERNEL_WRAPPERS
+    assert "adam_step" in KERNEL_WRAPPERS and len(KERNEL_WRAPPERS) == 9
     trace.count("launches.segment_sum_rows")
     trace.count("launches.entry_counts", 2)
+    trace.count("launches.adam_step", 3)
     after = kernel_launches()
     assert {k: after[k] - before[k] for k in after} == {
         **dict.fromkeys(KERNEL_WRAPPERS, 0), "segment_sum_rows": 1,
-        "entry_counts": 2}
+        "entry_counts": 2, "adam_step": 3}
     assert trace.counters()["launches.entry_counts"] == after["entry_counts"]
 
 

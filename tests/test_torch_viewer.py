@@ -257,5 +257,5 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert [p.name for p in _build.sources()] == [
-        "expand.cu", "importance.cu", "rasterize_bwd.cu", "rasterize_fwd.cu",
-        "segsum.cu", "tile_cull.cu", "tile_loss.cu"]
+        "adam.cu", "expand.cu", "importance.cu", "rasterize_bwd.cu",
+        "rasterize_fwd.cu", "segsum.cu", "tile_cull.cu", "tile_loss.cu"]

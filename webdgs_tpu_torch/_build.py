@@ -84,6 +84,12 @@ SIGNATURES = {
                           _F, _P, _P, _P),
     # words, total, e_cap, ntx, keys, stream
     "webdgs_entry_keys": (_P, _P, _I, _I, _P, _P),
+    # params (5 pointers, PACK_LAYOUT order), grads (5), m, v, tile_counts,
+    # out params (5), m_out, v_out, n, lrs (6 floats: lanes 0, 3, 7, 10,
+    # 11, 14), full_sh, beta1, 1 - beta1, beta2, 1 - beta2, eps,
+    # 1 / corr1, 1 / corr2, stream
+    "webdgs_adam_step": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _F,
+                         _F, _F, _F, _F, _F, _F, _P),
 }
 
 

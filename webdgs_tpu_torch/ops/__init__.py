@@ -1,6 +1,7 @@
 KERNEL_WRAPPERS = ("expand_fields", "rasterize_tiles", "tile_loss_tiles",
                    "rasterize_tiles_backward", "segment_sum_rows",
-                   "entry_counts", "cull_words", "entry_keys")
+                   "entry_counts", "cull_words", "entry_keys",
+                   "adam_step")
 
 
 def kernel_launches() -> dict:
