@@ -1898,7 +1898,7 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     del big, imgs
 
     events = []
-    run_densify = trainer._run_densify
+    run_densify = trainer._densify_event
 
     def timed_densify(w_, h_):
         torch.cuda.synchronize()
@@ -1911,7 +1911,7 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
                        "capacity": (before[1], trainer.scene.capacity),
                        "syncs": syncs, **trainer.last_densify_event})
 
-    trainer._run_densify = timed_densify
+    trainer._densify_event = timed_densify
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launch_mark = kernel_counters()
@@ -2323,12 +2323,13 @@ def banded_phase(dev, big, settings, size=(8192, 4320),
     print(f"[banded] Viewer 1M sh3 {W}x{H} ({ntx * nty} tiles, {bands} "
           f"bands of {rows} tile rows): frames "
           f"{[round(t, 2) for t in frame_ms]} ms; {viewer.entry_demand} "
-          f"entries in the largest band, capacity {viewer._entry_cap}; "
+          f"entries in the largest band, capacity "
+          f"{viewer._entry_budget.value}; "
           f"peak device memory {peak_gib:.2f} GiB; {lit:.3f} of pixels "
           f"lit; launches {viewer_launches}", flush=True)
 
     cam = viewer.camera()
-    cap = viewer._entry_cap
+    cap = viewer._entry_budget.value
 
     def frame(mode):
         return renderer.render_banded(big, cam, W, H, settings,
@@ -2953,7 +2954,7 @@ def gs_train_phase(dev, s1m, n: int = 1_000_000,
     keys = ("iteration", "in", "out", "cloned", "split", "pruned")
     ref = Trainer(big, cams, imgs, cfg, s1m)
     ref_events, ref_ms = [], []
-    ref_densify = ref._run_densify
+    ref_densify = ref._densify_event
 
     def recorded(w_, h_):
         torch.cuda.synchronize()
@@ -2963,7 +2964,7 @@ def gs_train_phase(dev, s1m, n: int = 1_000_000,
         ref_events.append({k: ref.last_densify_event[k] for k in keys})
         ref_events[-1]["ms"] = 1e3 * (time.perf_counter() - t0)
 
-    ref._run_densify = recorded
+    ref._densify_event = recorded
     ref_losses = []
     for _ in range(5):
         n_ev = len(ref_events)
@@ -2983,7 +2984,7 @@ def gs_train_phase(dev, s1m, n: int = 1_000_000,
         tr = GsTrainer(big, cams, imgs, cfg, s1m, mesh=mesh)
         del big, imgs
         events = []
-        run_densify = tr._run_densify
+        run_densify = tr._densify_event
 
         def timed_densify(w_, h_):
             torch.cuda.synchronize()
@@ -3000,7 +3001,7 @@ def gs_train_phase(dev, s1m, n: int = 1_000_000,
                 "capacity": (before[2], tr.capacity),
                 **{k: tr.last_densify_event[k] for k in keys}})
 
-        tr._run_densify = timed_densify
+        tr._densify_event = timed_densify
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         launch_mark = kernel_counters()
@@ -3054,10 +3055,17 @@ def gs_train_phase(dev, s1m, n: int = 1_000_000,
                   f"{ev['syncs']}; launches {ev['launches']}", flush=True)
         print(f"[gs-train] 5 steps + 2 events: launches {launches}; peak "
               f"device memory {peak_gb:.2f} GiB; caps entry "
-              f"{tr._gs_entry_cap}, send {tr._gs_send_cap}", flush=True)
+              f"{tr._shard_entries.value}, send {tr._send.value}",
+              flush=True)
         check(len(events) == 2, f"expected 2 gs events, got {len(events)}")
         check(all(v > 0 for v in launches.values()),
               f"a kernel did not launch in the GsTrainer run: {launches}")
+        # the event's one read is the .tolist() of Trainer._densify_event,
+        # which both trainers run; the GsTrainer's hooks wait nowhere
+        import inspect
+        src, first = inspect.getsourcelines(Trainer._densify_event)
+        event_read = "webdgs_tpu_torch/train/trainer.py:%d" % (first + next(
+            i for i, line in enumerate(src) if ".tolist()" in line))
         for ev in events:
             check(ev["cloned"] > 0 and ev["split"] > 0 and ev["pruned"] > 0
                   and ev["points"][1] != ev["points"][0],
@@ -3065,9 +3073,9 @@ def gs_train_phase(dev, s1m, n: int = 1_000_000,
             mine = {k: v for k, v in ev["syncs"].items()
                     if any(f"{m}.py" in k for m in (
                         "ops/segsum", "ops/rasterize", "ops/importance",
-                        "parallel/sharding"))}
+                        "parallel/sharding", "parallel/gs_trainer"))}
             own = sum(v for k, v in ev["syncs"].items()
-                      if "parallel/gs_trainer.py" in k)
+                      if k.endswith(event_read))
             check(not mine and own == 1, f"the gs event waits: "
                   f"{ev['syncs']}")
         check(events[0]["capacity"][1] > events[0]["capacity"][0],

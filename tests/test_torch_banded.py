@@ -133,19 +133,20 @@ def test_viewer_banded_branch_adapts_capacity(monkeypatch):
 
     monkeypatch.setattr(tviewer, "render_banded", spy)
     monkeypatch.setattr(binning_ops, "TILE_KEY_LIMIT", 7)  # bands of 3 rows
-    v._entry_cap = None
+    v._entry_budget.value = None
     img = v.render()
     assert calls == ["gaussian"]
     assert img.shape == (h, w, 3)
     np.testing.assert_allclose(img, plain, **TOL)
-    assert v._entry_cap is not None and v._entry_cap > 0
+    assert v._entry_budget.value is not None
+    assert v._entry_budget.value > 0
     assert 0 < v.entry_demand
-    cap = v._entry_cap
+    cap = v._entry_budget.value
     v.set_render_mode("pointcloud")
     img2 = v.render()
     assert calls == ["gaussian", "pointcloud"]
     assert img2.shape == (h, w, 3)
-    assert v._entry_cap == cap  # the point bands keep the capacity
+    assert v._entry_budget.value == cap  # the point bands keep the capacity
 
 
 @pytest.mark.parametrize("row0,rows", [(0, 2), (1, 2), (2, 3), (5, 4)])

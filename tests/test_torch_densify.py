@@ -171,7 +171,7 @@ def test_densify_rng_is_seeded():
                                      ((97, 55), (48, 27)),
                                      ((32, 24), (32, 24))])
 def test_target_resize_matches_jax(src, dst):
-    """The densify phase's target downscale (Trainer._run_densify)."""
+    """The densify phase's target downscale (Trainer._event)."""
     (w, h), (mw, mh) = src, dst
     imgs = np.random.default_rng(w).random((2, h, w, 3)).astype(np.float32)
     want = np.asarray(jax.image.resize(jnp.asarray(imgs), (2, mh, mw, 3),

@@ -46,7 +46,7 @@ def test_viewer_render_matches_jax():
         assert got.shape == want.shape and got.dtype == np.float32
         np.testing.assert_allclose(got, want, rtol=IMG_RTOL, atol=IMG_ATOL)
     # adaptive entry capacity follows the reference's ladder
-    assert tv._entry_cap == jv._entry_cap
+    assert tv._entry_budget.value == jv._entry_cap
 
 
 def test_viewer_pointcloud_mode_and_orbit(tmp_path):

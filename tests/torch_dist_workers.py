@@ -127,7 +127,7 @@ def case_trainer(mesh, inp, out_dir):
                  initial_capacity=16, mesh=mesh)
     losses = [float(tr.step()["loss"]) for _ in range(3)]
     after_steps = dict(iteration=tr.iteration,
-                       entry_cap_peak=tr._entry_cap_peak,
+                       entry_cap_peak=tr._entry_budget.peak,
                        psnr=float(tr.last_metrics["psnr"]))
     lines = []
     ck = os.path.join(out_dir, f"ck_r{mesh.rank}.npz")
@@ -261,8 +261,7 @@ def case_gs_step_full_sh(mesh, inp, out_dir):
     new = gs_train_step(
         gaussian_shard(scene, mesh),
         gaussian_shard(init_adam_state(scene.params()), mesh), cam, target,
-        mesh, img_w=w, img_h=h, hp=hp, settings=SETTINGS_EXACT,
-        parity_sh=False)
+        mesh, img_w=w, img_h=h, hp=hp, settings=SETTINGS_EXACT)
     ref = train_step(scene, init_adam_state(scene.params()), cam, target,
                      img_w=w, img_h=h, hp=hp, settings=SETTINGS_EXACT)
     return {**_params("gs_p_", new.scene.params()),
@@ -406,8 +405,8 @@ def case_gs_trainer(mesh, inp, out_dir):
     losses = [float(tr.step()["loss"]) for _ in range(inp["steps"])]
     out = {"losses": np.asarray(losses), **_trainer_state("", tr),
            **_shard_arrays("shard_", tr.scene, tr.opt_state),
-           "caps": np.asarray([tr._gs_entry_cap or -1,
-                               tr._gs_send_cap or -1]),
+           "caps": np.asarray([tr._shard_entries.value or -1,
+                               tr._send.value or -1]),
            "capacity": np.asarray(tr.capacity),
            "band_rank": np.asarray(mesh.band_rank),
            "dp_rank": np.asarray(mesh.dp_rank)}
@@ -428,11 +427,11 @@ def case_gs_adaptive(mesh, inp, out_dir):
     s16 = dataclasses.replace(SETTINGS, tile_w=16, tile_h=16)
     tr = _gs_trainer(mesh, inp, s16)
     tr.ENTRY_CAP_INTERVAL = 2
-    tr._gs_send_cap = s16.chunk  # deliberately too small
-    tr._gs_entry_cap = 1024  # so that the send budget binds
+    tr._send.value = s16.chunk  # deliberately too small
+    tr._shard_entries.value = 1024  # so that the send budget binds
     dropped = [int(tr.step()["entries_dropped"]) for _ in range(8)]
     return {"dropped": np.asarray(dropped),
-            "send_cap": np.asarray(tr._gs_send_cap)}
+            "send_cap": np.asarray(tr._send.value)}
 
 
 def case_gs_rollback(mesh, inp, out_dir):

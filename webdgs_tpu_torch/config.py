@@ -67,3 +67,37 @@ def quantize_budget(want: int | float, chunk: int, floor: int) -> int:
     want = max(int(want), floor, chunk)
     g = max(1 << max(want.bit_length() - 3, 0), chunk)
     return -(-(-(-want // g) * g) // chunk) * chunk
+
+
+class CapacityBudget:
+    """A capacity that follows an observed demand: its decayed peak times
+    ``headroom`` on the :func:`quantize_budget` ladder, at least ``floor``
+    chunks (``value``; None until the first observation).  ``chunk`` comes
+    with each call, since the render settings may change between calls."""
+
+    def __init__(self, headroom: float, decay: float, shrink: int,
+                 floor: int):
+        self.headroom, self.decay, self.shrink = headroom, decay, shrink
+        self.floor = floor
+        self.peak = 0.0
+        self.value: int | None = None
+
+    def observe(self, demand: int | float, chunk: int) -> None:
+        """Grow whenever short on headroom; shrink only when ``shrink``
+        times oversized.  The decay keeps an early spike from oversizing
+        the buffers for good (0: the last demand alone)."""
+        self.peak = max(float(demand), self.decay * self.peak)
+        self._take(chunk, shrink=True)
+
+    def scale(self, ratio: float, chunk: int) -> None:
+        """Grow with a demand expected to change by ``ratio`` (the alive
+        count's, at a densify swap)."""
+        self.peak *= ratio
+        self._take(chunk, shrink=False)
+
+    def _take(self, chunk: int, shrink: bool) -> None:
+        want = quantize_budget(self.peak * self.headroom, chunk,
+                               chunk * self.floor)
+        if (self.value is None or want > self.value
+                or shrink and want < self.value // self.shrink):
+            self.value = want

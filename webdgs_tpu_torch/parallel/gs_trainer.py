@@ -51,8 +51,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from webdgs_tpu_torch import trace
-from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
-                                     quantize_budget)
+from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, CapacityBudget,
+                                     RenderSettings)
 from webdgs_tpu_torch.core.camera import Camera
 from webdgs_tpu_torch.core.scene import GaussianScene
 from webdgs_tpu_torch.ops import densify as densify_ops
@@ -358,15 +358,17 @@ class GsTrainer(Trainer):
         if mesh is None:
             raise ValueError("GsTrainer requires a mesh")
         self.d_band = mesh.band_size
-        self.n_step_views = mesh.dp_size
         if initial_capacity is not None:
             initial_capacity = -(-initial_capacity // self.d_band) \
                 * self.d_band
         super().__init__(scene, cameras, images, config, settings,
                          initial_capacity=initial_capacity, mesh=mesh)
-        self._gs_entry_cap: int | None = None
-        self._gs_send_cap: int | None = None
-        self._send_peak = 0.0
+        self.n_step_views = mesh.dp_size  # one per mesh row
+        # the shard's budgets; the whole scene's (``_entry_cap``) stays None
+        self._shard_entries = CapacityBudget(headroom=1.2, decay=0.9,
+                                             shrink=2, floor=8)
+        self._send = CapacityBudget(headroom=1.2, decay=0.9, shrink=2,
+                                    floor=1)
         self._shard_alive = self._keep_shard()
 
     def _keep_shard(self) -> list[int] | None:
@@ -401,114 +403,38 @@ class GsTrainer(Trainer):
     def full_opt_state(self) -> AdamState:
         return gather_opt_state(self.opt_state, self.mesh)
 
-    def step(self) -> dict:
-        """One training iteration: 1 view (a dp x band mesh: one per mesh
-        row) drawn from the shared ``random.Random``."""
-        with trace.span("train.step"):
-            self._gauge_slots()
-            (w, h), g = self._pick_group()
-            if self.mesh.shape is not None:
-                idxs = [self.rng.randrange(g["count"])
-                        for _ in range(self.n_step_views)]
-                cam = [g["cams"][i] for i in idxs]
-                target = [g["imgs"][i] for i in idxs]
-            else:
-                i = self.rng.randrange(g["count"])
-                cam, target = g["cams"][i], g["imgs"][i]
-            self.scene, self.opt_state, metrics = gs_train_step(
-                self.scene, self.opt_state, cam, target, self.mesh, img_w=w,
-                img_h=h, loss_cfg=self.config.loss, hp=self.config.adam,
-                settings=self.settings, send_capacity=self._gs_send_cap,
-                entry_capacity=self._gs_entry_cap,
-                parity_sh=not self.config.adam.full_sh)
-            self.iteration += 1
-            self._maybe_adapt_gs_caps(metrics)
-            if self.config.densify.schedule.should_densify(self.iteration):
-                self._run_densify(w, h)
-            self._finish_step(metrics)
-            return metrics
+    def _step_budgets(self) -> dict[str, CapacityBudget]:
+        return {"entries_local_max": self._shard_entries,
+                "send_max": self._send}
 
-    def _maybe_adapt_gs_caps(self, metrics) -> None:
-        """The per-rank entry capacity and the per-band send budget from
-        the observed loads: one read per ENTRY_CAP_INTERVAL, as the
-        single-device entry capacity."""
-        if self.iteration != 1 and self.iteration % self.ENTRY_CAP_INTERVAL:
-            return
-        chunk = self.settings.chunk
-        with trace.span("wait.entry_cap"):
-            e_obs, s_obs = torch.stack([metrics["entries_local_max"],
-                                        metrics["send_max"]]).tolist()
-        self._entry_cap_peak = max(float(e_obs), self.ENTRY_CAP_DECAY
-                                   * self._entry_cap_peak)
-        self._send_peak = max(float(s_obs),
-                              self.ENTRY_CAP_DECAY * self._send_peak)
-        want_e = quantize_budget(self._entry_cap_peak
-                                 * self.ENTRY_CAP_HEADROOM, chunk, chunk * 8)
-        cur = self._gs_entry_cap
-        if cur is None or want_e > cur or want_e < cur // 2:
-            self._gs_entry_cap = want_e
-        want_s = quantize_budget(self._send_peak * self.ENTRY_CAP_HEADROOM,
-                                 chunk, chunk)
-        cur = self._gs_send_cap
-        if cur is None or want_s > cur or want_s < cur // 2:
-            self._gs_send_cap = want_s
+    def _run_step(self, w: int, h: int, cams: list, targets: list) -> dict:
+        if self.mesh.shape is None:
+            cams, targets = cams[0], targets[0]
+        self.scene, self.opt_state, metrics = gs_train_step(
+            self.scene, self.opt_state, cams, targets, self.mesh, img_w=w,
+            img_h=h, loss_cfg=self.config.loss, hp=self.config.adam,
+            settings=self.settings, send_capacity=self._send.value,
+            entry_capacity=self._shard_entries.value)
+        return metrics
 
-    def _densify_event(self, w: int, h: int) -> None:
-        cfg = self.config.densify
-        g = self.groups[(w, h)]
-        downscale = max(1, int(cfg.metric_downscale))
-        mw, mh = max(1, w // downscale), max(1, h // downscale)
-
-        with trace.span("densify.grow"):
-            self._grow_capacity()
+    def _event(self, g: dict, view_idx: list[int], mw: int, mh: int):
         self.scene, self.opt_state = rebalance_shards(
             self.scene, self.opt_state, self.mesh, self._shard_alive)
         self._shard_alive = balanced_counts(self.num_points, self.d_band)
-
-        n_views = min(max(1, cfg.metric_views), g["count"])
-        view_idx = self.rng.sample(range(g["count"]), k=n_views)
-        result = gs_densify_event(
+        return gs_densify_event(
             self.scene, self.opt_state,
             [self._metric_camera(g["cams"][i], mw, mh) for i in view_idx],
             [g["imgs"][i] for i in view_idx], self.mesh, self.generator,
-            mw=mw, mh=mh, cfg=cfg, settings=self.settings)
+            mw=mw, mh=mh, cfg=self.config.densify, settings=self.settings)
 
-        # the event's one read: its counts and each shard's output count
-        with trace.span("wait.event_counts"):
-            vals = torch.cat([torch.stack([
-                result.out_total, result.in_alive, result.n_cloned,
-                result.n_split, result.n_pruned]).to(torch.int64),
-                result.shard_totals]).tolist()
-        out_total, in_alive, cloned, split, pruned = vals[:5]
-        self.last_densify_event = {
-            "iteration": self.iteration, "in": in_alive, "out": out_total,
-            "cloned": cloned, "split": split, "pruned": pruned}
-        if out_total == 0 or out_total == in_alive:
-            return  # the reference skips the swap; the rebalance stays
-        self.scene = result.scene
-        self.opt_state = result.opt_state
-        self._shard_alive = vals[5:]
-        self.num_points = out_total
-        self.last_densify_iteration = self.iteration
-        self._grow_entry_cap_for_swap(out_total, in_alive)
+    def _event_counts(self, result: GsDensifyResult) -> torch.Tensor:
+        """The counts and each shard's output count, which sizes the next
+        rebalance's exchange."""
+        return torch.cat([super()._event_counts(result).to(torch.int64),
+                          result.shard_totals])
 
-    def _grow_entry_cap_for_swap(self, out_total: int, in_alive: int) -> None:
-        """A swap scales the per-rank entry load and the send load about
-        linearly with the alive count: both budgets grow with it."""
-        if not (out_total > in_alive > 0):
-            return
-        ratio = out_total / in_alive
-        chunk = self.settings.chunk
-        self._entry_cap_peak *= ratio
-        self._send_peak *= ratio
-        want_e = quantize_budget(self._entry_cap_peak
-                                 * self.ENTRY_CAP_HEADROOM, chunk, chunk * 8)
-        if self._gs_entry_cap is None or want_e > self._gs_entry_cap:
-            self._gs_entry_cap = want_e
-        want_s = quantize_budget(self._send_peak * self.ENTRY_CAP_HEADROOM,
-                                 chunk, chunk)
-        if self._gs_send_cap is None or want_s > self._gs_send_cap:
-            self._gs_send_cap = want_s
+    def _after_swap(self, extra: list[int]) -> None:
+        self._shard_alive = extra
 
     def resume_from(self, scene: GaussianScene,
                     opt_state: AdamState | None, iteration: int) -> None:

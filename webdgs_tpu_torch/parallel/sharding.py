@@ -49,7 +49,7 @@ from webdgs_tpu_torch.core.scene import GaussianScene
 from webdgs_tpu_torch.ops import binning as binning_ops
 from webdgs_tpu_torch.ops import rasterize as raster_ops
 from webdgs_tpu_torch.ops.adam import AdamHyperparameters, AdamState, adam_step
-from webdgs_tpu_torch.ops.loss import LossConfig, loss_metrics, ssim_map
+from webdgs_tpu_torch.ops.loss import LossConfig, ssim_map
 from webdgs_tpu_torch.ops.projection import SplatAttrs, project_gaussians
 from webdgs_tpu_torch.ops.segsum import segment_reduce_entries
 from webdgs_tpu_torch.ops.tile_loss import (band_tile_loss_gradient,
@@ -57,9 +57,7 @@ from webdgs_tpu_torch.ops.tile_loss import (band_tile_loss_gradient,
                                             supports_tile_loss)
 from webdgs_tpu_torch.render.renderer import _render_band
 from webdgs_tpu_torch.train.step import (TrainStepResult, _project,
-                                         _project_vjp, _vjp,
-                                         compute_param_grads,
-                                         compute_param_grads_tiled)
+                                         _project_vjp, _vjp, view_grads)
 
 # a rank that fails lets its peers' collectives raise after this long
 DEFAULT_TIMEOUT_S = 600.0
@@ -244,17 +242,9 @@ def dp_train_step(scene: GaussianScene, opt_state: AdamState,
     sums = torch.zeros((len(SUM_METRICS),), dtype=torch.float32, device=dev)
     maxes = torch.zeros((len(MAX_METRICS),), dtype=torch.int64, device=dev)
     for i in range(mesh.rank * per_rank, (mesh.rank + 1) * per_rank):
-        if supports_tile_loss(img_w, img_h, settings):
-            m, d_params, aux, demand = compute_param_grads_tiled(
-                scene, cameras[i], targets[i], img_w, img_h, loss_cfg,
-                settings, parity_sh=not hp.full_sh,
-                entry_capacity=entry_capacity)
-        else:
-            image, d_params, aux, demand = compute_param_grads(
-                scene, cameras[i], targets[i], img_w, img_h, loss_cfg,
-                settings, parity_sh=not hp.full_sh,
-                entry_capacity=entry_capacity)
-            m = loss_metrics(image, targets[i], loss_cfg)
+        m, d_params, aux, demand = view_grads(
+            scene, cameras[i], targets[i], img_w, img_h, loss_cfg, settings,
+            hp, entry_capacity)
         grads = {k: grads[k] + d_params[k] for k in grads}
         counts = counts + aux.num_tiles
         sums = sums + torch.stack([m[k] for k in SUM_METRICS])
@@ -617,8 +607,7 @@ def gs_train_step(scene: GaussianScene, opt_state: AdamState, camera,
                   hp: AdamHyperparameters = AdamHyperparameters(),
                   settings: RenderSettings = DEFAULT_SETTINGS,
                   send_capacity: int | None = None,
-                  entry_capacity: int | None = None,
-                  parity_sh: bool = True) -> TrainStepResult:
+                  entry_capacity: int | None = None) -> TrainStepResult:
     """One training step with the scene and the Adam state sharded over the
     band group: ``scene`` and ``opt_state`` are this rank's shards
     (:func:`gaussian_shard`), and so are the returned ones.
@@ -656,8 +645,8 @@ def gs_train_step(scene: GaussianScene, opt_state: AdamState, camera,
     th = settings.tile_h
     band_h = plan.rows * th
 
-    params, attrs, leaves, aux, stage = _project(scene, camera, img_w,
-                                                 img_h, settings, parity_sh)
+    params, attrs, leaves, aux, stage = _project(
+        scene, camera, img_w, img_h, settings, parity_sh=not hp.full_sh)
     ex = _exchange_layout(leaves, aux, plan, mesh, settings)
     out = _band_tiles(leaves, ex, plan, mesh, settings, track_ncontrib=False)
     if supports_tile_loss(img_w, img_h, settings):

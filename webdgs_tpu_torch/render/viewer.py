@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from webdgs_tpu_torch import trace
-from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
-                                     quantize_budget)
+from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, CapacityBudget,
+                                     RenderSettings)
 from webdgs_tpu_torch.core.camera import Camera, CameraData, make_camera
 from webdgs_tpu_torch.core.scene import GaussianScene
 from webdgs_tpu_torch.ops import binning as binning_ops
@@ -95,8 +95,9 @@ class Viewer:
         self.render_mode = render_mode  # 'gaussian' | 'pointcloud'
         self.point_size_px = point_size_px
         self.gaussian_scaling = float(settings.gaussian_scaling)
-        # adaptive tile-entry capacity, sized from the observed demand
-        self._entry_cap: int | None = None
+        # adaptive tile-entry capacity, sized from the last frame's demand
+        self._entry_budget = CapacityBudget(headroom=1.5, decay=0.0,
+                                            shrink=3, floor=8)
         # tile entries the last gaussian-mode frame asked for (in a banded
         # frame, its largest band)
         self.entry_demand: int | None = None
@@ -158,13 +159,14 @@ class Viewer:
                     gaussian_scaling=self.gaussian_scaling)
                 return _host_copy(img)
             res = render(self.scene, cam, w, h, self.settings,
-                         entry_capacity=self._entry_cap,
+                         entry_capacity=self._entry_budget.value,
                          gaussian_scaling=self.gaussian_scaling)
             image = _host_copy(res.image)
         # the pre-drop demand: total_entries saturates at the capacity
         self.entry_demand = int(res.binning.expansion_entries)
         if downscale == 1:
-            self._adapt_entry_cap(self.entry_demand)
+            self._entry_budget.observe(self.entry_demand,
+                                       self.settings.chunk)
         return image
 
     def _render_banded(self, cam: Camera, w: int, h: int,
@@ -175,7 +177,7 @@ class Viewer:
         with torch.no_grad():
             img, observed = render_banded(
                 self.scene, cam, w, h, self.settings,
-                entry_capacity=self._entry_cap,
+                entry_capacity=self._entry_budget.value,
                 gaussian_scaling=self.gaussian_scaling,
                 mode=self.render_mode, point_size_px=self.point_size_px,
                 return_entries=True)
@@ -185,15 +187,8 @@ class Viewer:
             if self.render_mode == "gaussian":
                 self.entry_demand = observed
             if downscale == 1:
-                self._adapt_entry_cap(observed)
+                self._entry_budget.observe(observed, self.settings.chunk)
         return image
-
-    def _adapt_entry_cap(self, observed: int) -> None:
-        chunk = self.settings.chunk
-        want = quantize_budget(observed * 1.5, chunk, chunk * 8)
-        if self._entry_cap is None or want > self._entry_cap or \
-                want < self._entry_cap // 3:
-            self._entry_cap = want
 
 
 def orbit_cameras(center, radius: float, n_frames: int, width: int,

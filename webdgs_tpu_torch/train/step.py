@@ -180,6 +180,24 @@ def compute_param_grads_tiled(scene: GaussianScene, camera: Camera,
     return metrics, d_params, aux, bins.expansion_entries
 
 
+def view_grads(scene: GaussianScene, camera: Camera, target: torch.Tensor,
+               img_w: int, img_h: int, loss_cfg: LossConfig,
+               settings: RenderSettings, hp: AdamHyperparameters,
+               entry_capacity: int | None = None):
+    """One view's (metrics, param grads dict, aux, entry_demand): the
+    tile-loss path where the frame supports it, else the image-space loss;
+    ``hp.full_sh`` decides whether the SH colour is trained."""
+    if supports_tile_loss(img_w, img_h, settings):
+        return compute_param_grads_tiled(
+            scene, camera, target, img_w, img_h, loss_cfg, settings,
+            parity_sh=not hp.full_sh, entry_capacity=entry_capacity)
+    image, *grads = compute_param_grads(
+        scene, camera, target, img_w, img_h, loss_cfg, settings,
+        parity_sh=not hp.full_sh, entry_capacity=entry_capacity)
+    with trace.span("loss"):
+        return (loss_metrics(image, target, loss_cfg), *grads)
+
+
 def train_step(scene: GaussianScene, opt_state: AdamState, camera: Camera,
                target: torch.Tensor, *, img_w: int, img_h: int,
                loss_cfg: LossConfig = LossConfig(),
@@ -189,17 +207,9 @@ def train_step(scene: GaussianScene, opt_state: AdamState, camera: Camera,
     """One iteration on ``target`` (H, W, 3) f32 seen from ``camera``.
     Metrics: l1 l2 dssim loss psnr visible tile_entries (device
     scalars)."""
-    if supports_tile_loss(img_w, img_h, settings):
-        metrics, d_params, aux, entry_demand = compute_param_grads_tiled(
-            scene, camera, target, img_w, img_h, loss_cfg, settings,
-            parity_sh=not hp.full_sh, entry_capacity=entry_capacity)
-    else:
-        image, d_params, aux, entry_demand = compute_param_grads(
-            scene, camera, target, img_w, img_h, loss_cfg, settings,
-            parity_sh=not hp.full_sh, entry_capacity=entry_capacity)
-        with trace.span("loss"):
-            metrics = loss_metrics(image, target, loss_cfg)
-
+    metrics, d_params, aux, entry_demand = view_grads(
+        scene, camera, target, img_w, img_h, loss_cfg, settings, hp,
+        entry_capacity)
     with torch.no_grad(), trace.span("adam"):
         new_params, new_opt = adam_step(scene.params(), d_params, opt_state,
                                         hp, aux.num_tiles)

@@ -23,8 +23,10 @@ rank draws the same indices) and trains them view-data-parallel through
 same decisions from the same state, since the kernels are deterministic.
 Only rank 0 logs and writes checkpoints in ``train``.  A mesh of one rank
 takes the single-device step.  ``parallel/gs_trainer.py:GsTrainer`` holds
-shards of the scene instead; the hooks it overrides are ``_round``,
-``capacity``, ``_resize_state``, ``full_scene`` and ``full_opt_state``.
+shards of the scene instead and runs the same ``step`` and densify event
+through the hooks it overrides: ``_round``, ``capacity``,
+``_resize_state``, ``full_scene``, ``full_opt_state``, ``_run_step``,
+``_step_budgets``, ``_event``, ``_event_counts`` and ``_after_swap``.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from webdgs_tpu_torch import trace
-from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, RenderSettings,
-                                     quantize_budget)
+from webdgs_tpu_torch.config import (DEFAULT_SETTINGS, CapacityBudget,
+                                     RenderSettings)
 from webdgs_tpu_torch.core.camera import Camera, CameraData, make_camera
 from webdgs_tpu_torch.core.scene import GaussianScene
 from webdgs_tpu_torch.ops.adam import AdamState, init_adam_state
@@ -101,6 +103,8 @@ class Trainer:
             warnings.warn(f"loss weights sum to {lam:.3f}, expected ~1.0",
                           stacklevel=2)
         self.rng = random.Random(config.seed)
+        # the views each step trains: one per rank of the mesh
+        self.n_step_views = 1 if mesh is None else mesh.size
         # the densify noise; replaces the reference's jax.random key
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
@@ -113,8 +117,8 @@ class Trainer:
         self.opt_state = init_adam_state(self.scene.params())
 
         self.iteration = 0
-        self._entry_cap_value: int | None = None
-        self._entry_cap_peak = 0.0
+        self._entry_budget = CapacityBudget(headroom=1.2, decay=0.9,
+                                            shrink=2, floor=8)
         self.iters_per_sec = 0.0
         self._rate_mark: tuple[int, float] | None = None
         self.last_densify_iteration: int | None = None
@@ -145,55 +149,55 @@ class Trainer:
 
     # adaptive tile-entry capacity: every O(entries) op is sized by it.  It
     # starts at the heuristic, then follows the observed per-frame entry
-    # demand with headroom (one host read every ENTRY_CAP_INTERVAL steps).
+    # demand (one host read every ENTRY_CAP_INTERVAL steps).
     ENTRY_CAP_INTERVAL = 50
-    ENTRY_CAP_HEADROOM = 1.2
-    # the peak decays between observations so an early spike does not
-    # oversize the buffers for good
-    ENTRY_CAP_DECAY = 0.9
 
     def _entry_cap(self) -> int | None:
-        return self._entry_cap_value
+        """The whole-scene entry capacity (None for a ``GsTrainer``, whose
+        steps feed their shard's budgets instead)."""
+        return self._entry_budget.value
 
-    def _maybe_adapt_entry_cap(self, metrics) -> None:
-        if self.iteration != 1 and self.iteration % self.ENTRY_CAP_INTERVAL:
-            return
-        with trace.span("wait.entry_cap"):
-            observed = float(metrics["tile_entries"])
-        self._entry_cap_peak = max(observed,
-                                   self.ENTRY_CAP_DECAY * self._entry_cap_peak)
-        chunk = self.settings.chunk
-        want = quantize_budget(self._entry_cap_peak * self.ENTRY_CAP_HEADROOM,
-                               chunk, chunk * 8)
-        cur = self._entry_cap_value
-        # grow whenever short on headroom; shrink only when far oversized
-        if cur is None or want > cur or want < cur // 2:
-            self._entry_cap_value = want
+    def _step_budgets(self) -> dict[str, CapacityBudget]:
+        """The capacity budgets the step feeds, by the metric each reads."""
+        return {"tile_entries": self._entry_budget}
+
+    def _run_step(self, w: int, h: int, cams: list, targets: list) -> dict:
+        """Train on the step's views; returns the step's metrics."""
+        step_kw = dict(img_w=w, img_h=h, loss_cfg=self.config.loss,
+                       hp=self.config.adam, settings=self.settings,
+                       entry_capacity=self._entry_cap())
+        if len(cams) > 1:
+            # rank b trains view b
+            self.scene, self.opt_state, metrics = dp_train_step(
+                self.scene, self.opt_state, cams, targets, self.mesh,
+                **step_kw)
+        else:
+            self.scene, self.opt_state, metrics = train_step(
+                self.scene, self.opt_state, cams[0], targets[0], **step_kw)
+        return metrics
 
     def step(self) -> dict:
         """One training iteration."""
         with trace.span("train.step"):
             self._gauge_slots()
             (w, h), g = self._pick_group()
-            step_kw = dict(img_w=w, img_h=h, loss_cfg=self.config.loss,
-                           hp=self.config.adam, settings=self.settings,
-                           entry_capacity=self._entry_cap())
-            if self.mesh is not None and self.mesh.size > 1:
-                # every rank draws the same indices; rank b trains view b
-                idxs = [self.rng.randrange(g["count"])
-                        for _ in range(self.mesh.size)]
-                self.scene, self.opt_state, metrics = dp_train_step(
-                    self.scene, self.opt_state, [g["cams"][i] for i in idxs],
-                    [g["imgs"][i] for i in idxs], self.mesh, **step_kw)
-            else:
-                idx = self.rng.randrange(g["count"])
-                self.scene, self.opt_state, metrics = train_step(
-                    self.scene, self.opt_state, g["cams"][idx],
-                    g["imgs"][idx], **step_kw)
+            # every rank draws the same indices
+            idxs = [self.rng.randrange(g["count"])
+                    for _ in range(self.n_step_views)]
+            metrics = self._run_step(w, h, [g["cams"][i] for i in idxs],
+                                     [g["imgs"][i] for i in idxs])
             self.iteration += 1
-            self._maybe_adapt_entry_cap(metrics)
+            if (self.iteration == 1
+                    or self.iteration % self.ENTRY_CAP_INTERVAL == 0):
+                # every budget the step feeds follows its metric: one read
+                budgets = self._step_budgets()
+                with trace.span("wait.entry_cap"):
+                    seen = torch.stack([metrics[k] for k in budgets]).tolist()
+                for budget, demand in zip(budgets.values(), seen):
+                    budget.observe(demand, self.settings.chunk)
             if self.config.densify.schedule.should_densify(self.iteration):
-                self._run_densify(w, h)
+                with trace.span("densify.event"):
+                    self._densify_event(w, h)
             self._finish_step(metrics)
             return metrics
 
@@ -265,10 +269,6 @@ class Trainer:
                 self._resize_state(new_cap)
 
     @torch.no_grad()
-    def _run_densify(self, w: int, h: int) -> None:
-        with trace.span("densify.event"):
-            self._densify_event(w, h)
-
     def _densify_event(self, w: int, h: int) -> None:
         cfg = self.config.densify
         g = self.groups[(w, h)]
@@ -280,6 +280,32 @@ class Trainer:
 
         n_views = min(max(1, cfg.metric_views), g["count"])
         view_idx = self.rng.sample(range(g["count"]), k=n_views)
+        result = self._event(g, view_idx, mw, mh)
+
+        # the event's one read of its counts and decisions
+        with trace.span("wait.event_counts"):
+            vals = self._event_counts(result).tolist()
+        out_total, in_alive, cloned, split, pruned = vals[:5]
+        self.last_densify_event = {
+            "iteration": self.iteration, "in": in_alive, "out": out_total,
+            "cloned": cloned, "split": split, "pruned": pruned}
+        if out_total == 0 or out_total == in_alive:
+            return  # the reference skips the swap
+        self.scene = result.scene
+        self.opt_state = result.opt_state
+        self._after_swap(vals[5:])
+        self.num_points = out_total
+        self.last_densify_iteration = self.iteration
+        if out_total > in_alive > 0:
+            # entry demand scales about linearly with the alive points:
+            # grow the budgets now instead of at the next adaptation read
+            for budget in self._step_budgets().values():
+                budget.scale(out_total / in_alive, self.settings.chunk)
+
+    def _event(self, g: dict, view_idx: list[int], mw: int, mh: int):
+        """The event on the views ``view_idx`` of ``g`` at the metric
+        viewport: a ``DensifyResult`` (not yet swapped in)."""
+        cfg = self.config.densify
         with trace.span("densify.importance"):
             cams = [self._metric_camera(g["cams"][i], mw, mh)
                     for i in view_idx]
@@ -292,37 +318,18 @@ class Trainer:
                 cams, t_small.permute(0, 2, 3, 1), mw, mh,
                 cfg.metric_threshold, self.settings)
         with trace.span("densify.prune"):
-            result = densify_prune(self.scene, self.opt_state, counts, cfg,
-                                   self.generator)
+            return densify_prune(self.scene, self.opt_state, counts, cfg,
+                                 self.generator)
 
-        # the event's one read of its counts and decisions
-        with trace.span("wait.event_counts"):
-            out_total, in_alive, cloned, split, pruned = torch.stack([
-                result.out_total, result.in_alive, result.n_cloned,
-                result.n_split, result.n_pruned]).tolist()
-        self.last_densify_event = {
-            "iteration": self.iteration, "in": in_alive, "out": out_total,
-            "cloned": cloned, "split": split, "pruned": pruned}
-        if out_total == 0 or out_total == in_alive:
-            return  # the reference skips the swap
-        self.scene = result.scene
-        self.opt_state = result.opt_state
-        self.num_points = out_total
-        self.last_densify_iteration = self.iteration
-        self._grow_entry_cap_for_swap(out_total, in_alive)
+    def _event_counts(self, result) -> torch.Tensor:
+        """The event's one read: out, in, cloned, split, pruned, then the
+        values :meth:`_after_swap` takes."""
+        return torch.stack([result.out_total, result.in_alive,
+                            result.n_cloned, result.n_split,
+                            result.n_pruned])
 
-    def _grow_entry_cap_for_swap(self, out_total: int, in_alive: int) -> None:
-        """Entry demand scales about linearly with the alive points: grow
-        the entry-cap peak with a densify swap instead of waiting for the
-        next adaptation read."""
-        if not (out_total > in_alive > 0):
-            return
-        self._entry_cap_peak *= out_total / in_alive
-        chunk = self.settings.chunk
-        want = quantize_budget(self._entry_cap_peak * self.ENTRY_CAP_HEADROOM,
-                               chunk, chunk * 8)
-        if self._entry_cap_value is None or want > self._entry_cap_value:
-            self._entry_cap_value = want
+    def _after_swap(self, extra: list[int]) -> None:
+        """Apply the read's values past the counts once a swap is in."""
 
     def next_densify_iteration(self) -> int | None:
         """The iteration of the next densify event, or None."""
