@@ -73,6 +73,16 @@ Phases (any failure raises, and the script exits non-zero with no result):
      every lane measured, a repeat bit-identical, run in sync debug mode
      "error", each timed back to back and queued beside its bound of
      1,656 bytes a row (1,476 with DC only);
+     the indexed staging (indexed_check) at the bench training step, the
+     bench view, the 1M step and the 960x540 densify view: the forward,
+     backward and importance kernels reading the entries through the
+     binning's index (invalid slots holding index INT_MAX) bit-identical
+     to the same kernels on the packed rows, the five fields' gradients
+     the segment sum of the packed cotangents, each indexed wrapper in
+     sync debug mode "error", and each kernel timed on both inputs in
+     turns beside the pack; the Viewer's frames, the training slice's
+     steps and the densify run's Trainer steps and events must leave the
+     trace counter raster.packed_calls unchanged (no pack on the card);
   4. the viewer slice: a Viewer renders 5 bench frames through the render
      kernels (their launch counters are reset just before and must grow),
      and a small frame rendered on the card matches the plain CPU render;
@@ -294,7 +304,8 @@ def evaluated_pairs(fwd_tiles, tile_offsets, settings) -> int:
 
 # each training kernel's CUDA entry and its plain version, by module of
 # webdgs_tpu_torch.ops: swapped in (plain_kernels), a step runs its plain
-# versions on the card
+# versions on the card (the raster ones on the packed rows of the entries
+# the CUDA entries take)
 PLAIN_ROUTES = (("rasterize", "_rasterize_tiles_cuda", "rasterize_tiles_plain"),
                 ("rasterize", "_rasterize_tiles_backward_cuda",
                  "rasterize_tiles_backward_plain"),
@@ -316,7 +327,11 @@ class plain_kernels:
         for mod_name, entry, plain in PLAIN_ROUTES:
             mod = importlib.import_module(f"webdgs_tpu_torch.ops.{mod_name}")
             self.saved.append((mod, entry, getattr(mod, entry)))
-            setattr(mod, entry, getattr(mod, plain))
+            fn = getattr(mod, plain)
+            if mod_name == "rasterize":
+                def fn(entries, *args, fn=fn, mod=mod):
+                    return fn(mod.packed_rows(entries), *args)
+            setattr(mod, entry, fn)
         return self
 
     def __exit__(self, *exc):
@@ -411,9 +426,10 @@ def launches_since(mark: dict) -> dict:
 def metric_view_inputs(scene, cam, target, mw: int, mh: int,
                        threshold: float, settings):
     """The importance kernel's inputs for one metric view, built as
-    ``view_importance_counts`` builds them: (attrs16, tile_offsets,
-    pix_tiles, ntx, nty), the view's valid entry count and its binning
-    (whose payloads the one-row segment sum takes)."""
+    ``view_importance_counts`` builds them, the entries packed: (attrs16,
+    tile_offsets, pix_tiles, ntx, nty), the view's valid entry count, its
+    binning (whose payloads the one-row segment sum takes) and its
+    projected attributes."""
     import torch
     from webdgs_tpu_torch.ops import binning, importance, rasterize
     from webdgs_tpu_torch.ops.projection import project_gaussians
@@ -434,7 +450,7 @@ def metric_view_inputs(scene, cam, target, mw: int, mh: int,
         pix_tiles = rasterize.image_to_tiles(pix, ntx, nty,
                                              settings).contiguous()
     return ((m16, bins.tile_offsets, pix_tiles, ntx, nty, settings),
-            int(bins.total_entries), bins)
+            int(bins.total_entries), bins, attrs)
 
 
 def importance_check(label: str, margs, n_valid: int, plain_iters: int,
@@ -1094,6 +1110,135 @@ def forward_check(label: str, attrs16, tile_offsets, ntx: int, nty: int,
     return res
 
 
+def indexed_check(label: str, attrs, bins, ntx: int, nty: int, settings,
+                  iters: int, pix_tiles=None) -> dict:
+    """The three kernels reading each entry through the binning's index
+    (``rasterize.EntryAttrs``, the render's path) against the same kernels
+    on the packed rows ``pack_entry_attrs`` builds from that index, every
+    slot past the total holding index INT_MAX: the forward tiles (with and
+    without n_contrib), the backward's (16, E) cotangents and the
+    importance counts bit-identical; the autograd path's five fields'
+    gradients equal to the segment sum of the packed cotangents, split;
+    each indexed wrapper and the autograd path in sync debug mode "error".
+    Times each kernel on the two inputs in turns (indexed, packed,
+    indexed, packed), back to back and queued, and the pack itself
+    queued.  ``bins`` carries the expansion payloads (with_source);
+    ``pix_tiles`` is the importance kernel's (flag, n_contrib) input,
+    else one from a fixed noise flag on the forward."""
+    import torch
+    from webdgs_tpu_torch.ops import importance, rasterize
+    from webdgs_tpu_torch.ops.projection import SplatAttrs
+    valid = bins.entry_valid
+    gauss = torch.where(valid, bins.entry_gauss, 2 ** 31 - 1)
+    attrs = SplatAttrs(*(a.detach() for a in attrs))
+    entries = rasterize.EntryAttrs(attrs, gauss, valid, bins.entry_source,
+                                   bins.gauss_counts)
+    off = bins.tile_offsets
+    with torch.no_grad():
+        a16 = rasterize.pack_entry_attrs(attrs, gauss, valid)
+        fi = rasterize.rasterize_tiles(entries, off, ntx, nty, settings)
+        fp = rasterize.rasterize_tiles(a16, off, ntx, nty, settings)
+        fi0 = rasterize.rasterize_tiles(entries, off, ntx, nty, settings,
+                                        track_ncontrib=False)
+        fp0 = rasterize.rasterize_tiles(a16, off, ntx, nty, settings,
+                                        track_ncontrib=False)
+    check(torch.equal(fi, fp) and torch.equal(fi0, fp0),
+          f"indexed forward ({label}) differs from the packed rows'")
+    check(float(fi[:, 3].max()) > 0.5, f"indexed forward ({label}): empty")
+    gen = torch.Generator(device=fi.device).manual_seed(21)
+    g = torch.randn(fi.shape, generator=gen, device=fi.device)
+    suffix = (torch.sum(g[:, 0:4] * fi0[:, 0:4], dim=1, keepdim=True)
+              + g[:, 4:5] * fi0[:, 4:5])
+    gpix5 = torch.cat([g[:, 0:4], suffix], dim=1).contiguous()
+    di = rasterize.rasterize_tiles_backward(entries, off, gpix5, ntx, nty,
+                                            settings)
+    dp = rasterize.rasterize_tiles_backward(a16, off, gpix5, ntx, nty,
+                                            settings)
+    check(torch.equal(di, dp) and float(dp[0:9].abs().max()) > 0,
+          f"indexed backward ({label}) differs from the packed rows'")
+    if pix_tiles is None:
+        tiles = rasterize.tiles_to_image(fi, ntx, nty, ntx * settings.tile_w,
+                                         nty * settings.tile_h, settings)
+        noise = torch.rand(tiles.shape[:2], generator=gen, device=fi.device)
+        pix = torch.stack([(noise > 0.7).to(torch.float32),
+                           tiles[..., rasterize.OUT_NCONTRIB]], dim=-1)
+        pix_tiles = rasterize.image_to_tiles(pix, ntx, nty,
+                                             settings).contiguous()
+    ci = importance.entry_counts(entries, off, pix_tiles, ntx, nty, settings)
+    cp = importance.entry_counts(a16, off, pix_tiles, ntx, nty, settings)
+    check(torch.equal(ci, cp) and float(cp.sum()) > 0,
+          f"indexed importance counts ({label}) differ from the packed "
+          "rows'")
+    # the render's autograd path: no wait, the fields' gradients the
+    # segment sum of the packed cotangents
+    leaves = SplatAttrs(*(a.clone().requires_grad_(True) for a in attrs))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rasterize.rasterize_tiles(entries, off, ntx, nty, settings)
+        rasterize.rasterize_tiles_backward(entries, off, gpix5, ntx, nty,
+                                           settings)
+        importance.entry_counts(entries, off, pix_tiles, ntx, nty, settings)
+        out = rasterize.rasterize_tiles(entries._replace(attrs=leaves), off,
+                                        ntx, nty, settings,
+                                        track_ncontrib=False)
+        grads = torch.autograd.grad(out, list(leaves), g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = rasterize.entry_grads(entries, dp)
+    check(all(torch.equal(a, b) for a, b in zip(grads, want)),
+          f"indexed gradients ({label}) differ from the segment sum of the "
+          "packed rows' cotangents")
+
+    def turns(indexed, packed):
+        b2b = [cuda_ms(f, iters) for f in (indexed, packed, indexed, packed)]
+        queued = [queued_ms(f, iters) for f in (indexed, packed, indexed,
+                                                packed)]
+        return {"indexed_ms": b2b[0::2], "packed_ms": b2b[1::2],
+                "indexed_device_ms": queued[0::2],
+                "packed_device_ms": queued[1::2]}
+    res = {"slots": a16.shape[1], "valid": int(valid.sum()),
+           "fwd": turns(
+               lambda: rasterize._rasterize_tiles_cuda(
+                   entries, off, ntx, nty, settings, True),
+               lambda: rasterize._rasterize_tiles_cuda(
+                   a16, off, ntx, nty, settings, True)),
+           "bwd": turns(
+               lambda: rasterize._rasterize_tiles_backward_cuda(
+                   entries, off, gpix5, ntx, nty, settings),
+               lambda: rasterize._rasterize_tiles_backward_cuda(
+                   a16, off, gpix5, ntx, nty, settings)),
+           "imp": turns(
+               lambda: importance._entry_counts_cuda(
+                   entries, off, pix_tiles, ntx, nty, settings),
+               lambda: importance._entry_counts_cuda(
+                   a16, off, pix_tiles, ntx, nty, settings)),
+           "pack_device_ms": queued_ms(
+               lambda: rasterize.pack_entry_attrs(attrs, gauss, valid),
+               iters)}
+    print(f"[kernels] indexed staging {label}: {res['valid']} valid entries "
+          f"of {res['slots']} slots (the rest index INT_MAX); forward tiles, "
+          f"backward rows, importance counts and the five fields' gradients "
+          f"bit-identical to the packed rows'; sync debug mode \"error\" "
+          f"passed; ms in turns (indexed | packed), back to back and queued: "
+          + "; ".join(f"{k} {r['indexed_ms'][0]:.4f} / "
+                      f"{r['indexed_ms'][1]:.4f} | {r['packed_ms'][0]:.4f} / "
+                      f"{r['packed_ms'][1]:.4f}, queued "
+                      f"{r['indexed_device_ms'][0]:.4f} / "
+                      f"{r['indexed_device_ms'][1]:.4f} | "
+                      f"{r['packed_device_ms'][0]:.4f} / "
+                      f"{r['packed_device_ms'][1]:.4f}"
+                      for k, r in res.items() if isinstance(r, dict))
+          + f"; the pack queued {res['pack_device_ms']:.4f} ms", flush=True)
+    return res
+
+
+def packed_calls() -> int:
+    """Calls of ``pack_entry_attrs`` on the card so far in this process."""
+    from webdgs_tpu_torch import trace
+    return trace.counters().get("raster.packed_calls", 0)
+
+
 def binning_inputs_at(scene, cam, w: int, h: int, settings,
                       cap: int | None):
     """What ``bin_splats`` bins where it bins ``scene`` seen from ``cam``
@@ -1545,7 +1690,8 @@ def backward_step_inputs(scene, cam, w: int, h: int, settings, cap: int,
     tile offsets and the (T, 5, P) pixel cotangents that the tile-loss
     kernel's dpix and the forward tiles give, as ``_RasterizeTiles.
     backward`` folds them.  Also the forward tiles with n_contrib (for the
-    pairs the raster kernels evaluate) and the tile grid."""
+    pairs the raster kernels evaluate), the tile grid, the projected
+    attributes and the binning."""
     import torch
     from webdgs_tpu_torch.ops import binning, rasterize, tile_loss
     from webdgs_tpu_torch.ops.loss import LossConfig
@@ -1567,7 +1713,8 @@ def backward_step_inputs(scene, cam, w: int, h: int, settings, cap: int,
         gpix5 = torch.cat([dpix[:, 0:4], suffix], dim=1).contiguous()
     return {"attrs16": a16, "tile_offsets": bins.tile_offsets,
             "gpix5": gpix5, "ntx": ntx, "nty": nty, "fwd": out,
-            "entries": int(bins.total_entries)}
+            "entries": int(bins.total_entries), "attrs": attrs,
+            "bins": bins}
 
 
 def backward_check(label: str, inp: dict, settings, iters: int,
@@ -1915,12 +2062,18 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launch_mark = kernel_counters()
+    packed_mark = packed_calls()
     t0 = time.perf_counter()
     for _ in range(4):
         metrics = trainer.step()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = launches_since(launch_mark)
+    packed = packed_calls() - packed_mark
+    print(f"[densify] raster.packed_calls over 4 Trainer steps and 2 "
+          f"events: {packed}", flush=True)
+    check(packed == 0, f"the Trainer's steps or events packed entry rows "
+          f"{packed} times")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     check(len(events) == 2, f"expected 2 densify events, got {len(events)}")
     check(launches["entry_counts"] > 0 and launches["segment_sum_rows"] > 0,
@@ -2017,13 +2170,16 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
 
     # the importance kernel against its plain version at the load an event
     # gives it: this metric view of the post-event state
-    margs, n_valid, mbins = metric_view_inputs(
+    margs, n_valid, mbins, mattrs = metric_view_inputs(
         sc, mcam, tgt, mw, mh, cfg.densify.metric_threshold, s1m)
     # the forward kernel at the same view: each event launches it once per
     # view
     fwd = forward_check(f"{mw}x{mh} densify view", margs[0], margs[1],
                         margs[3], margs[4], s1m, 10, 1, ties=True)
     imp = importance_check(f"{mw}x{mh} densify view", margs, n_valid, 1)
+    idx_view = indexed_check(f"{mw}x{mh} densify view", mattrs, mbins,
+                             margs[3], margs[4], s1m, 5, pix_tiles=margs[2])
+    del mattrs
     # the expansion of the same view (the heuristic capacity)
     exp_view = expand_check(f"{mw}x{mh} densify view",
                             *expansion_at(sc, mcam, mw, mh, s1m, None), 1)
@@ -2041,7 +2197,7 @@ def densify_phase(dev, s1m, n: int = 1_000_000,
     torch.cuda.empty_cache()
     return {"launches": launches, "events": events, "peak_gb": peak_gb,
             "importance": imp, "segsum": seg, "forward": fwd,
-            "expand": exp_view, "cull": cull_view}
+            "expand": exp_view, "cull": cull_view, "indexed": idx_view}
 
 
 def small_event_phase(dev, settings) -> None:
@@ -3319,6 +3475,8 @@ def main(argv: list[str] | None = None) -> int:
     seg = segsum_check(f"{w}x{h} training step", bk, tbins.gauss_counts,
                        tbins.entry_source, tbins.entry_valid,
                        tbins.expansion_gauss, 5)
+    idx_bench = indexed_check(f"{w}x{h} training step", attrs, tbins, ntx,
+                              nty, settings, 20)
     del dk, bk, tfwd, a16g, fwd_g, g_auto
     torch.cuda.empty_cache()
 
@@ -3355,16 +3513,20 @@ def main(argv: list[str] | None = None) -> int:
                             align_corners=False, antialias=True)
         tgt = tgt[0].permute(1, 2, 0).contiguous()
     mcam = default_camera(mw, mh, position=(0.0, 0.0, -8.0), device=dev)
-    margs, mtotal, _ = metric_view_inputs(scene, mcam, tgt, mw, mh, 0.5,
-                                          settings)
+    margs, mtotal, mbins, mattrs = metric_view_inputs(
+        scene, mcam, tgt, mw, mh, 0.5, settings)
     imp_bench = importance_check(f"{mw}x{mh} bench view", margs, mtotal, 5,
                                  host_bound=True)
-    del margs
+    idx_bench_view = indexed_check(f"{mw}x{mh} bench view", mattrs, mbins,
+                                   margs[3], margs[4], settings, 20,
+                                   pix_tiles=margs[2])
+    del margs, mbins, mattrs
 
     # --- 4. the viewer slice: frames through the render kernels ---
     viewer = Viewer(scene, w, h, settings, device="cuda")
     viewer.control.position = np.array([0.0, 0.0, -8.0], np.float32)
     launch_mark = kernel_counters()
+    packed_mark = packed_calls()
     frame_s = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -3374,6 +3536,9 @@ def main(argv: list[str] | None = None) -> int:
                 if k in VIEWER_KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path did not launch: {launches}")
+    packed_viewer = packed_calls() - packed_mark
+    check(packed_viewer == 0, f"the Viewer's frames packed entry rows "
+          f"{packed_viewer} times")
     check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()),
           "viewer frame is not a finite 600x800x3 image")
     lit = float((img.max(axis=2) > 0.02).mean())
@@ -3382,7 +3547,8 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[slice] Viewer 100k 800x600: frames {[round(1e3 * s, 2) for s in frame_s]} ms; "
           f"steady {steady_ms:.2f} ms/frame, "
           f"{w * h / steady_ms / 1e3:.1f} Mpix/s; {lit:.3f} of pixels lit; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; raster.packed_calls {packed_viewer}",
+          flush=True)
 
     # a small frame on the card against the plain CPU render
     sw, sh = 96, 80
@@ -3407,6 +3573,7 @@ def main(argv: list[str] | None = None) -> int:
                                      img_h=h, settings=settings,
                                      entry_capacity=cap)
     launch_mark = kernel_counters()
+    packed_mark = packed_calls()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -3419,6 +3586,9 @@ def main(argv: list[str] | None = None) -> int:
                       if k in TRAIN_KERNELS}
     check(all(v > 0 for v in train_launches.values()),
           f"a kernel of the training path did not launch: {train_launches}")
+    packed_train = packed_calls() - packed_mark
+    check(packed_train == 0, f"the training steps packed entry rows "
+          f"{packed_train} times")
     finite = all(bool(torch.isfinite(v).all())
                  for v in s_cur.params().values())
     check(finite and math.isfinite(float(m_cur["loss"])),
@@ -3446,8 +3616,8 @@ def main(argv: list[str] | None = None) -> int:
           f"{step_ms:.2f} "
           f"ms/step, {1e3 / step_ms:.2f} it/s; loss "
           f"{float(m_cur['loss']):.6f}, {int(m_cur['visible'])} visible, "
-          f"{int(m_cur['tile_entries'])} entries; launches {train_launches}",
-          flush=True)
+          f"{int(m_cur['tile_entries'])} entries; launches {train_launches}; "
+          f"raster.packed_calls {packed_train}", flush=True)
 
     # one step from one state, twice: bit-identical (no atomics anywhere)
     r1 = train_step(scene, opt0, cam, target_n, img_w=w, img_h=h,
@@ -3531,6 +3701,8 @@ def main(argv: list[str] | None = None) -> int:
                           s1m, 10, 1, ablate=True, ties=True)
     bwd1m = backward_check("1M sh3 1920x1080 training step", inp1m, s1m, 5,
                            1)
+    idx1m = indexed_check("1M sh3 1920x1080 training step", inp1m["attrs"],
+                          inp1m["bins"], inp1m["ntx"], inp1m["nty"], s1m, 5)
     # the tile loss at the same step, and the expansion of that frame
     loss1m = loss_check("1M sh3 1920x1080 training step", inp1m["fwd"],
                         target1m, 1920, 1080, inp1m["ntx"], inp1m["nty"],
@@ -3862,6 +4034,11 @@ def main(argv: list[str] | None = None) -> int:
                   "rows", "quat_ulps", "err", "by_hp")}),
     ]
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"indexed_staging": {
+        "bench_step": idx_bench, "bench_view": idx_bench_view,
+        "step_1m": idx1m, "densify_view": densify_res["indexed"],
+        "packed_calls": {"viewer_frames": packed_viewer,
+                         "train_steps": packed_train}}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -363,7 +363,8 @@ def test_inverse_permutation():
 
 
 def test_pack_gradient_is_segment_sum():
-    """The training pack's VJP equals autograd of the plain gather."""
+    """The fields' gradient through the entry index (``entry_grads``, the
+    segment sum) equals autograd of the plain gather."""
     from webdgs_tpu_torch.ops.projection import SplatAttrs
     rng = np.random.default_rng(6)
     n, e_cap = 40, 256
@@ -383,11 +384,12 @@ def test_pack_gradient_is_segment_sum():
     a = leaves()
     b = SplatAttrs(*(x.detach().clone().requires_grad_(True) for x in a))
     g = torch.tensor(rng.normal(0, 1, (16, e_cap)), dtype=torch.float32)
-    out_a = tras.pack_entry_attrs(a, entry_gauss, valid, perm,
-                                  torch.tensor(counts))
+    entries = tras.EntryAttrs(a, entry_gauss, valid, perm,
+                              torch.tensor(counts))
     out_b = tras.pack_entry_attrs(b, entry_gauss, valid)
-    torch.testing.assert_close(out_a, out_b, rtol=0, atol=0)
-    ga = torch.autograd.grad(out_a, list(a), g)
+    torch.testing.assert_close(tras.packed_rows(entries), out_b, rtol=0,
+                               atol=0)
+    ga = tras.entry_grads(entries, g)
     gb = torch.autograd.grad(out_b, list(b), g)
     for x, y in zip(ga, gb):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-5)

@@ -847,3 +847,116 @@ def test_train_step_launches_adam_once(cuda):
                img_w=w, img_h=h)
     torch.cuda.synchronize()
     assert kernel_launches()["adam_step"] == launches + 1
+
+
+# (Gaussians, width, height, camera distance): the bench step's frame
+# (bench.py's scene) and a 960x540 view like a densify event's metric view
+INDEXED_SHAPES = {"bench_step": (100_000, 800, 600, 8.0),
+                  "densify_view": (400_000, 960, 540, 6.0)}
+
+
+@pytest.mark.parametrize("shape", sorted(INDEXED_SHAPES))
+def test_indexed_kernels_match_packed(cuda, shape):
+    """The three kernels reading entries through the binning's index
+    (rasterize.EntryAttrs) against the same kernels on the packed rows of
+    that index, every slot past the total holding index INT_MAX: forward
+    tiles (both n_contrib modes), backward rows and importance counts
+    bit-identical, and the autograd path's five fields' gradients the
+    segment sum of the packed rows' cotangents, split."""
+    from webdgs_tpu_torch.bench import bench_scene
+    from webdgs_tpu_torch.ops import importance as timp
+    from webdgs_tpu_torch.ops.projection import SplatAttrs
+    n, w, h, dist = INDEXED_SHAPES[shape]
+    s = RenderSettings()
+    ts = (bench_scene(cuda) if shape == "bench_step"
+          else _scene(n, seed=44, spread=2.5).to(cuda))
+    cam = default_camera(w, h, position=(0.0, 0.0, -dist), device=cuda)
+    with torch.no_grad():
+        attrs, aux = project_gaussians(ts.params(), ts.alive, cam, w, h, 0,
+                                       s)
+    bins = bin_splats(aux, w, h, s, attrs=attrs, with_source=True)
+    valid = bins.entry_valid
+    assert not bool(valid.all())
+    gauss = torch.where(valid, bins.entry_gauss, 2 ** 31 - 1)
+    leaves = SplatAttrs(*(a.detach().requires_grad_(True) for a in attrs))
+    entries = tras.EntryAttrs(leaves, gauss, valid, bins.entry_source,
+                              bins.gauss_counts)
+    a16 = tras.pack_entry_attrs(attrs, gauss, valid)
+    ntx, nty = -(-w // s.tile_w), -(-h // s.tile_h)
+    off = bins.tile_offsets
+    with torch.no_grad():
+        for track in (True, False):
+            fi = tras.rasterize_tiles(entries, off, ntx, nty, s,
+                                      track_ncontrib=track)
+            fp = tras.rasterize_tiles(a16, off, ntx, nty, s,
+                                      track_ncontrib=track)
+            assert torch.equal(fi, fp), track
+    assert float(fp[:, tras.OUT_ACC_ALPHA].max()) > 0.5
+    out = tras.rasterize_tiles(entries, off, ntx, nty, s,
+                               track_ncontrib=False)
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(45), device=cuda)
+    grads = torch.autograd.grad(out, list(leaves), g)
+    suffix = (torch.sum(g[:, 0:4] * fp[:, 0:4], dim=1, keepdim=True)
+              + g[:, tras.OUT_T:tras.OUT_T + 1]
+              * fp[:, tras.OUT_T:tras.OUT_T + 1])
+    gpix5 = torch.cat([g[:, 0:4], suffix], dim=1).contiguous()
+    di = tras.rasterize_tiles_backward(entries, off, gpix5, ntx, nty, s)
+    dp = tras.rasterize_tiles_backward(a16, off, gpix5, ntx, nty, s)
+    assert torch.equal(di, dp) and float(dp[0:9].abs().max()) > 0
+    for got, want in zip(grads, tras.entry_grads(entries, dp)):
+        assert torch.equal(got, want)
+    with torch.no_grad():
+        fi = tras.rasterize_tiles(entries, off, ntx, nty, s)
+        tiles = tras.tiles_to_image(fi, ntx, nty, w, h, s)
+    flag = (torch.rand((h, w), generator=torch.Generator(
+        device=cuda).manual_seed(46), device=cuda) > 0.6).float()
+    pix = torch.stack([flag, tiles[..., tras.OUT_NCONTRIB]], dim=-1)
+    pix_tiles = tras.image_to_tiles(pix, ntx, nty, s).contiguous()
+    ci = timp.entry_counts(entries, off, pix_tiles, ntx, nty, s)
+    cp = timp.entry_counts(a16, off, pix_tiles, ntx, nty, s)
+    assert torch.equal(ci, cp) and float(cp.sum()) > 0
+    # the packed kernels are the plain versions' (the packed path as it was)
+    assert torch.equal(cp, timp.entry_counts_plain(a16, off, pix_tiles, ntx,
+                                                   nty, s))
+
+
+def test_render_step_event_viewer_never_pack(cuda):
+    """raster.packed_calls stays 0 over a Viewer frame, Trainer steps and a
+    densify event on the card: the kernels read the entries through the
+    index."""
+    import dataclasses
+    from webdgs_tpu_torch import trace
+    from webdgs_tpu_torch.render.viewer import Viewer
+    from webdgs_tpu_torch.train.config import TrainerConfig
+    from webdgs_tpu_torch.train.trainer import Trainer
+    w, h = 96, 64
+    rng = np.random.default_rng(47)
+    cams, images = [], []
+    for i in range(3):
+        cams.append(CameraData(
+            id=i, position=np.array([0.3 * i - 0.3, 0.1 * i, -5.0],
+                                    np.float32),
+            rotation=np.eye(3, dtype=np.float32), width=w, height=h,
+            fy=60.0, fx=60.0, img_name=f"v{i}.png"))
+        images.append({"width": w, "height": h,
+                       "image": rng.random((h, w, 3)).astype(np.float32)})
+    cfg = TrainerConfig(seed=6)
+    cfg = dataclasses.replace(cfg, densify=dataclasses.replace(
+        cfg.densify,
+        schedule=dataclasses.replace(cfg.densify.schedule, enabled=True,
+                                     warmup_iterations=2, interval=2,
+                                     stop_iterations=6),
+        metric_views=2, metric_downscale=2, metric_threshold=0.3))
+    before = trace.counters().get("raster.packed_calls", 0)
+    launches = kernel_launches()
+    Viewer(_scene(500, seed=48), w, h, device=cuda).render()
+    tr = Trainer(_scene(500, seed=48).to(cuda), cams, images, cfg,
+                 initial_capacity=1024)
+    tr.train(3, log_fn=None)
+    torch.cuda.synchronize()
+    assert tr.last_densify_event is not None
+    after = kernel_launches()
+    assert after["rasterize_tiles"] > launches["rasterize_tiles"]
+    assert after["entry_counts"] > launches["entry_counts"]
+    assert trace.counters().get("raster.packed_calls", 0) == before

@@ -46,6 +46,12 @@ SIGNATURES = {
     # tile_order ((T,) int32 scratch for the launch order), stream
     "webdgs_rasterize_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                              _F, _I, _P, _P, _P),
+    # the entries through their Gaussians: entry_gauss, entry_valid,
+    # center_px, conic, color, opacity, extents, e_len, then as above from
+    # tile_offsets
+    "webdgs_rasterize_fwd_indexed": (_P,) * 7 + (_I, _P, _I, _I, _I, _I, _I,
+                                                 _F, _F, _F, _F, _I, _P, _P,
+                                                 _P),
     # tile_w, tile_h, chunk, out (4 ints: threads, smem bytes, CTAs per
     # SM, pixels per thread)
     "webdgs_rasterize_fwd_occupancy": (_I, _I, _I, _P),
@@ -54,6 +60,11 @@ SIGNATURES = {
     # tile_order ((T,) int32 scratch for the launch order), stream
     "webdgs_rasterize_bwd": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                              _F, _F, _P, _P, _P),
+    # the seven pointers and e_len of webdgs_rasterize_fwd_indexed, then as
+    # above from tile_offsets
+    "webdgs_rasterize_bwd_indexed": (_P,) * 7 + (_I, _P, _P, _I, _I, _I, _I,
+                                                 _I, _F, _F, _F, _F, _P, _P,
+                                                 _P),
     # tile_w, tile_h, chunk, out (5 ints: threads, smem bytes, CTAs per
     # SM, pixels per thread, entries per batch)
     "webdgs_rasterize_bwd_occupancy": (_I, _I, _I, _P),
@@ -75,6 +86,10 @@ SIGNATURES = {
     # attrs16, e_len, tile_offsets, pix, n_tiles, ntx, tile_w, tile_h,
     # alpha_min, alpha_max, out, stream
     "webdgs_importance": (_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P),
+    # the seven pointers and e_len of webdgs_rasterize_fwd_indexed, then as
+    # above from tile_offsets
+    "webdgs_importance_indexed": (_P,) * 7 + (_I, _P, _P, _I, _I, _I, _I, _F,
+                                              _F, _P, _P),
     # tile_w, tile_h, out (5 ints: threads, shared bytes, CTAs per SM,
     # registers, CTAs per tile)
     "webdgs_importance_occupancy": (_I, _I, _P),

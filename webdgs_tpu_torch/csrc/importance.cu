@@ -28,8 +28,10 @@
 //   within a bucket): the entry at pos walks only the records of its
 //   position's bucket and above, since every record below has
 //   n_contrib < pos, and tests n_contrib per record.
-// - One thread per entry slot: it reads the entry's 8 used rows straight
-//   from global memory (consecutive lanes, consecutive slots), walks the
+// - One thread per entry slot: it reads the entry's 8 used words straight
+//   from global memory (load_entry, tile_stage.cuh: through the binning's
+//   index from the projected attributes in the metric views,
+//   webdgs_importance_indexed; or from packed rows), walks the
 //   records as shared-memory broadcasts, counts in a register and writes
 //   its slot once.  One writer per slot, integer counts, no atomics: the
 //   output is bit-identical from run to run.  Neighbouring lanes hold
@@ -45,7 +47,7 @@
 //   first order of the raster kernels (tile_stage.cuh) ran ~8 % slower
 //   here, its one-CTA sort kernel included.
 // - Each CTA clamps its tile's range to 0 <= uo <= end <= E, so no offset
-//   reads outside attrs16 and the wrapper reads nothing back.
+//   reads outside the entries and the wrapper reads nothing back.
 // The thread-per-pixel version it replaces (one CTA of tile_px threads,
 // every warp over every entry up to the largest flagged n_contrib, 8 rows
 // staged per chunk, a ballot per entry and warp) took ~55x its bound at a
@@ -58,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include "splat_alpha.cuh"
+#include "tile_stage.cuh"
 
 namespace {
 
@@ -81,8 +84,8 @@ constexpr size_t smem_bytes(int npix) {
 }
 
 __global__ void __launch_bounds__(kThreads) importance_kernel(
-    const float* __restrict__ attrs, int e_len,
-    const int32_t* __restrict__ offsets, const float* __restrict__ pix,
+    const EntrySrc src, const int32_t* __restrict__ offsets,
+    const float* __restrict__ pix,
     int ntx, int tile_w, int tile_h, float alpha_min, float alpha_max,
     float* __restrict__ out) {
   extern __shared__ float4 rec[];  // (px, py, n_contrib bits, 0) per record
@@ -100,8 +103,8 @@ __global__ void __launch_bounds__(kThreads) importance_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int nwarps = kThreads / 32;
 
-  const int uo = min(max(offsets[t], 0), e_len);
-  const int cnt = min(max(offsets[t + 1], uo), e_len) - uo;
+  const int uo = min(max(offsets[t], 0), src.e_len);
+  const int cnt = min(max(offsets[t + 1], uo), src.e_len) - uo;
   if (seg * kThreads >= cnt) return;  // no share of this range can be ours
 
   // 1. the tile's pixels that can count: flagged, n_contrib >= 1
@@ -212,14 +215,11 @@ __global__ void __launch_bounds__(kThreads) importance_kernel(
 
   // 3. one thread per entry slot of this CTA's share
   for (int j = j0 + tid; j < j1; j += kThreads) {
-    const size_t e = (size_t)uo + j;
-    const float cx = attrs[e], cy = attrs[e_len + e];
-    const float ca = attrs[2 * (size_t)e_len + e];
-    const float cb = attrs[3 * (size_t)e_len + e];
-    const float cc = attrs[4 * (size_t)e_len + e];
-    const float op = attrs[8 * (size_t)e_len + e];
-    const float ex = attrs[9 * (size_t)e_len + e];
-    const float ey = attrs[10 * (size_t)e_len + e];
+    const int e = uo + j;
+    float w[kUsedRows];  // the 8 words the alpha test reads are loaded
+    load_entry(src, e, w);
+    const float cx = w[0], cy = w[1], ca = w[2], cb = w[3], cc = w[4];
+    const float op = w[8], ex = w[9], ey = w[10];
     const int pos = j + 1;
     // the records of pos's bucket and above; below it every n_contrib < pos
     const int stop =
@@ -238,15 +238,9 @@ __global__ void __launch_bounds__(kThreads) importance_kernel(
   }
 }
 
-}  // namespace
-
-// out: the zeroed (E,) counts; only slots inside a tile's range up to its
-// largest flagged n_contrib are written.
-extern "C" int webdgs_importance(const void* attrs16, int e_len,
-                                 const void* tile_offsets, const void* pix,
-                                 int n_tiles, int ntx, int tile_w, int tile_h,
-                                 float alpha_min, float alpha_max, void* out,
-                                 void* stream) {
+int launch(const EntrySrc& src, const void* tile_offsets, const void* pix,
+           int n_tiles, int ntx, int tile_w, int tile_h, float alpha_min,
+           float alpha_max, void* out, void* stream) {
   const int npix = tile_w * tile_h;
   if (n_tiles <= 0 || npix <= 0 || npix > 1024 || npix % 32 != 0 ||
       (long long)n_tiles * kSplit > 0x7fffffff) {
@@ -254,11 +248,38 @@ extern "C" int webdgs_importance(const void* attrs16, int e_len,
   }
   importance_kernel<<<n_tiles * kSplit, kThreads, smem_bytes(npix),
                       (cudaStream_t)stream>>>(
-      static_cast<const float*>(attrs16), e_len,
-      static_cast<const int32_t*>(tile_offsets),
+      src, static_cast<const int32_t*>(tile_offsets),
       static_cast<const float*>(pix), ntx, tile_w, tile_h, alpha_min,
       alpha_max, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out: the zeroed (E,) counts; only slots inside a tile's range up to its
+// largest flagged n_contrib are written.  The entries as packed (16, E)
+// rows attrs16.
+extern "C" int webdgs_importance(const void* attrs16, int e_len,
+                                 const void* tile_offsets, const void* pix,
+                                 int n_tiles, int ntx, int tile_w, int tile_h,
+                                 float alpha_min, float alpha_max, void* out,
+                                 void* stream) {
+  return launch(packed_src(attrs16, e_len), tile_offsets, pix, n_tiles, ntx,
+                tile_w, tile_h, alpha_min, alpha_max, out, stream);
+}
+
+// The entries through their Gaussians (tile_stage.cuh EntrySrc), as
+// webdgs_rasterize_fwd_indexed; the rest as webdgs_importance.
+extern "C" int webdgs_importance_indexed(
+    const void* entry_gauss, const void* entry_valid, const void* center,
+    const void* conic, const void* color, const void* opacity,
+    const void* extents, int e_len, const void* tile_offsets,
+    const void* pix, int n_tiles, int ntx, int tile_w, int tile_h,
+    float alpha_min, float alpha_max, void* out, void* stream) {
+  return launch(indexed_src(entry_gauss, entry_valid, center, conic, color,
+                            opacity, extents, e_len),
+                tile_offsets, pix, n_tiles, ntx, tile_w, tile_h, alpha_min,
+                alpha_max, out, stream);
 }
 
 // The launch shape for a tile of tile_w x tile_h pixels: out[0..4] =

@@ -74,6 +74,10 @@
 // - Double-buffered staging: chunk c + 1 is fetched with 4-byte cp.async
 //   (a tile's uo has any alignment, and the copy transposes rows into
 //   records) while chunk c computes; one barrier per chunk waits for it.
+//   The training step's entries are staged through the binning's index,
+//   as the forward kernel's (webdgs_rasterize_bwd_indexed); the per-slot
+//   cotangents are written to the (16, E) output all the same, which the
+//   segment sum reduces per Gaussian.
 // - A pixel outside an entry's extent box skips the Gaussian's expf: the
 //   forward's decision there is false whatever alpha is (without the skip
 //   the kernel runs longer).  The decisions stay the forward's
@@ -140,9 +144,8 @@ __device__ __forceinline__ void warp_sum_batch(float (&v)[kB][kNumSums],
 }
 
 __global__ void __launch_bounds__(1024 / kR) rasterize_bwd_kernel(
-    const float* __restrict__ attrs, int e_len,
-    const int32_t* __restrict__ offsets, const float* __restrict__ gpix,
-    int ntx, int tile_w, int tile_h, int chunk, int sub, float alpha_min,
+    const EntrySrc src, const int32_t* __restrict__ offsets,
+    const float* __restrict__ gpix, int ntx, int tile_w, int tile_h, int chunk, int sub, float alpha_min,
     float alpha_max, float t_threshold, float log_t_min,
     float* __restrict__ d_attrs, const int32_t* __restrict__ order) {
   extern __shared__ __align__(16) float smem[];
@@ -157,6 +160,7 @@ __global__ void __launch_bounds__(1024 / kR) rasterize_bwd_kernel(
   const int nthreads = blockDim.x;
   const int nwarps = nthreads >> 5;
   const int npix = tile_w * tile_h;
+  const int e_len = src.e_len;
   const int uo = min(max(offsets[t], 0), e_len);
   const int end = min(max(offsets[t + 1], uo), e_len);
   const int cnt = end - uo;
@@ -197,7 +201,7 @@ __global__ void __launch_bounds__(1024 / kR) rasterize_bwd_kernel(
     done[r] = !real || !(t_cur[r] >= t_threshold);
   }
 
-  if (cnt > 0) stage(recs, attrs, e_len, uo, min(chunk, cnt));
+  if (cnt > 0) stage(recs, src, uo, min(chunk, cnt));
   cp_async_commit();
   int buf = 0;
   for (int c0 = 0; c0 < cnt; c0 += chunk, buf ^= 1) {
@@ -205,7 +209,7 @@ __global__ void __launch_bounds__(1024 / kR) rasterize_bwd_kernel(
     // fetch the next chunk into the other buffer while this one computes
     // (its last reader passed the barrier that ended the previous chunk)
     if (c0 + chunk < cnt) {
-      stage(recs + (buf ^ 1) * rec_stride, attrs, e_len, uo + c0 + chunk,
+      stage(recs + (buf ^ 1) * rec_stride, src, uo + c0 + chunk,
             min(chunk, cnt - c0 - chunk));
     }
     cp_async_commit();
@@ -346,18 +350,12 @@ cudaError_t launch_shape(int tile_w, int tile_h, int chunk, int* threads,
                               (int)*smem);
 }
 
-}  // namespace
-
 // tile_order: (n_tiles,) int32 scratch that receives the launch order
 // (heaviest tiles first).
-extern "C" int webdgs_rasterize_bwd(const void* attrs16, int e_len,
-                                    const void* tile_offsets,
-                                    const void* gpix5, int n_tiles, int ntx,
-                                    int tile_w, int tile_h, int chunk,
-                                    float alpha_min, float alpha_max,
-                                    float t_threshold, float log_t_min,
-                                    void* d_attrs, void* tile_order,
-                                    void* stream) {
+int launch(const EntrySrc& src, const void* tile_offsets, const void* gpix5,
+           int n_tiles, int ntx, int tile_w, int tile_h, int chunk,
+           float alpha_min, float alpha_max, float t_threshold,
+           float log_t_min, void* d_attrs, void* tile_order, void* stream) {
   int threads;
   size_t smem;
   if (n_tiles <= 0 || tile_order == nullptr) {
@@ -367,16 +365,48 @@ extern "C" int webdgs_rasterize_bwd(const void* attrs16, int e_len,
   if (e != cudaSuccess) return (int)e;
   const auto* offsets = static_cast<const int32_t*>(tile_offsets);
   auto* order = static_cast<int32_t*>(tile_order);
-  tile_order_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(offsets, n_tiles,
-                                                        e_len, order);
+  tile_order_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
+      offsets, n_tiles, src.e_len, order);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   rasterize_bwd_kernel<<<n_tiles, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(attrs16), e_len, offsets,
-      static_cast<const float*>(gpix5), ntx, tile_w, tile_h, chunk,
-      chunk < kMaxSub ? chunk : kMaxSub, alpha_min, alpha_max, t_threshold,
-      log_t_min, static_cast<float*>(d_attrs), order);
+      src, offsets, static_cast<const float*>(gpix5), ntx, tile_w, tile_h,
+      chunk, chunk < kMaxSub ? chunk : kMaxSub, alpha_min, alpha_max,
+      t_threshold, log_t_min, static_cast<float*>(d_attrs), order);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entries as packed (16, E) rows attrs16.
+extern "C" int webdgs_rasterize_bwd(const void* attrs16, int e_len,
+                                    const void* tile_offsets,
+                                    const void* gpix5, int n_tiles, int ntx,
+                                    int tile_w, int tile_h, int chunk,
+                                    float alpha_min, float alpha_max,
+                                    float t_threshold, float log_t_min,
+                                    void* d_attrs, void* tile_order,
+                                    void* stream) {
+  return launch(packed_src(attrs16, e_len), tile_offsets, gpix5, n_tiles,
+                ntx, tile_w, tile_h, chunk, alpha_min, alpha_max,
+                t_threshold, log_t_min, d_attrs, tile_order, stream);
+}
+
+// The entries through their Gaussians (tile_stage.cuh EntrySrc), as
+// webdgs_rasterize_fwd_indexed; d_attrs is the (16, E) per-slot output all
+// the same.
+extern "C" int webdgs_rasterize_bwd_indexed(
+    const void* entry_gauss, const void* entry_valid, const void* center,
+    const void* conic, const void* color, const void* opacity,
+    const void* extents, int e_len, const void* tile_offsets,
+    const void* gpix5, int n_tiles, int ntx, int tile_w, int tile_h,
+    int chunk, float alpha_min, float alpha_max, float t_threshold,
+    float log_t_min, void* d_attrs, void* tile_order, void* stream) {
+  return launch(indexed_src(entry_gauss, entry_valid, center, conic, color,
+                            opacity, extents, e_len),
+                tile_offsets, gpix5, n_tiles, ntx, tile_w, tile_h, chunk,
+                alpha_min, alpha_max, t_threshold, log_t_min, d_attrs,
+                tile_order, stream);
 }
 
 // The launch shape for a tile of tile_w x tile_h pixels and this chunk:

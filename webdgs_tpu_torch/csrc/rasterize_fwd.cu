@@ -20,8 +20,8 @@
 // TPU kernel's while-loop test) when no pixel is still compositing with
 // log T >= log(t_threshold).  Output channels per tile, planar over its P
 // pixels: [r, g, b, acc_alpha, T_final, n_contrib, 0, 0].  Each CTA clamps
-// its range to 0 <= uo <= end <= E, so no offsets read outside attrs16 and
-// the wrapper reads nothing back.
+// its range to 0 <= uo <= end <= E, so no offsets read outside the entries
+// and the wrapper reads nothing back.
 //
 // What bounds it on the H100: fp32 issue of the alpha test over the
 // (pixel, entry) pairs and of the accurate log1pf/expf of the
@@ -29,7 +29,8 @@
 // they decide which pairs count, and the backward (rasterize_bwd.cu) and
 // importance (importance.cu) kernels replay the decisions, the latter
 // trusting the n_contrib written here.  Memory traffic is small: each
-// chunk of 11 rows is read once and the (T, 8, P) tiles written once.
+// entry a tile reaches is read once (11 words) and the (T, 8, P) tiles
+// written once.
 //
 // The design, point by point against the thread-per-pixel version it
 // replaces (one CTA of tile_w * tile_h threads in tile index order, rows
@@ -51,6 +52,15 @@
 //   records) while chunk c computes; one barrier per chunk waits for it.
 //   When the tile stops early a prefetch may still be in flight; the CTA
 //   waits for it before it exits.
+// - The render's entries are staged through the binning's index
+//   (webdgs_rasterize_fwd_indexed; tile_stage.cuh EntrySrc): a thread
+//   loads its slot's Gaussian and flag, then copies that Gaussian's 11
+//   words straight from the projected attributes (zero-filled for an
+//   invalid slot).  The (16, E) rows a gather, mask and transpose would
+//   build over the whole capacity -- 64 bytes a slot, about 80 times the
+//   entries a tile reaches before it saturates -- are never written; the
+//   dependent index load costs the kernel ~1.5 % (PERF.md).  Packed rows
+//   (webdgs_rasterize_fwd) stay an input, staged as before.
 // - A pixel outside an entry's extent box skips the Gaussian's expf: the
 //   decision there is false whatever alpha is, so no result changes.
 //   Inside the box the alpha and the decision are splat_alpha.cuh's,
@@ -78,11 +88,10 @@ constexpr int kR = 4;  // pixels per thread
 constexpr int kNumOut = 8;
 
 __global__ void __launch_bounds__(1024 / kR) rasterize_fwd_kernel(
-    const float* __restrict__ attrs, int e_len,
-    const int32_t* __restrict__ offsets, int ntx, int tile_w, int tile_h,
-    int chunk, float alpha_min, float alpha_max, float t_threshold,
-    float log_t_min, int track_ncontrib, float* __restrict__ out,
-    const int32_t* __restrict__ order) {
+    const EntrySrc src, const int32_t* __restrict__ offsets, int ntx,
+    int tile_w, int tile_h, int chunk, float alpha_min, float alpha_max,
+    float t_threshold, float log_t_min, int track_ncontrib,
+    float* __restrict__ out, const int32_t* __restrict__ order) {
   extern __shared__ __align__(16) float recs[];  // 2 buffers x chunk x kRec
   const int rec_stride = chunk * kRec;
 
@@ -90,6 +99,7 @@ __global__ void __launch_bounds__(1024 / kR) rasterize_fwd_kernel(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int npix = tile_w * tile_h;
+  const int e_len = src.e_len;
   const int uo = min(max(offsets[t], 0), e_len);
   const int end = min(max(offsets[t + 1], uo), e_len);
   const int cnt = end - uo;
@@ -120,7 +130,7 @@ __global__ void __launch_bounds__(1024 / kR) rasterize_fwd_kernel(
     done[r] = p >= npix || !(t_cur[r] >= t_threshold);
   }
 
-  if (cnt > 0) stage(recs, attrs, e_len, uo, min(chunk, cnt));
+  if (cnt > 0) stage(recs, src, uo, min(chunk, cnt));
   cp_async_commit();
   int buf = 0;
   for (int c0 = 0; c0 < cnt; c0 += chunk, buf ^= 1) {
@@ -128,7 +138,7 @@ __global__ void __launch_bounds__(1024 / kR) rasterize_fwd_kernel(
     // fetch the next chunk into the other buffer while this one computes
     // (its last reader passed the barrier that ended the previous chunk)
     if (c0 + chunk < cnt) {
-      stage(recs + (buf ^ 1) * rec_stride, attrs, e_len, uo + c0 + chunk,
+      stage(recs + (buf ^ 1) * rec_stride, src, uo + c0 + chunk,
             min(chunk, cnt - c0 - chunk));
     }
     cp_async_commit();
@@ -207,18 +217,12 @@ cudaError_t launch_shape(int tile_w, int tile_h, int chunk, int* threads,
   return *smem <= 48 * 1024 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-}  // namespace
-
 // tile_order: (n_tiles,) int32 scratch that receives the launch order
 // (heaviest tiles first).
-extern "C" int webdgs_rasterize_fwd(const void* attrs16, int e_len,
-                                    const void* tile_offsets, int n_tiles,
-                                    int ntx, int tile_w, int tile_h,
-                                    int chunk, float alpha_min,
-                                    float alpha_max, float t_threshold,
-                                    float log_t_min, int track_ncontrib,
-                                    void* out, void* tile_order,
-                                    void* stream) {
+int launch(const EntrySrc& src, const void* tile_offsets, int n_tiles,
+           int ntx, int tile_w, int tile_h, int chunk, float alpha_min,
+           float alpha_max, float t_threshold, float log_t_min,
+           int track_ncontrib, void* out, void* tile_order, void* stream) {
   int threads;
   size_t smem;
   if (n_tiles <= 0 || tile_order == nullptr) {
@@ -228,15 +232,48 @@ extern "C" int webdgs_rasterize_fwd(const void* attrs16, int e_len,
   if (e != cudaSuccess) return (int)e;
   const auto* offsets = static_cast<const int32_t*>(tile_offsets);
   auto* order = static_cast<int32_t*>(tile_order);
-  tile_order_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(offsets, n_tiles,
-                                                        e_len, order);
+  tile_order_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
+      offsets, n_tiles, src.e_len, order);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   rasterize_fwd_kernel<<<n_tiles, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(attrs16), e_len, offsets, ntx, tile_w,
-      tile_h, chunk, alpha_min, alpha_max, t_threshold, log_t_min,
-      track_ncontrib, static_cast<float*>(out), order);
+      src, offsets, ntx, tile_w, tile_h, chunk, alpha_min, alpha_max,
+      t_threshold, log_t_min, track_ncontrib, static_cast<float*>(out),
+      order);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entries as packed (16, E) rows attrs16.
+extern "C" int webdgs_rasterize_fwd(const void* attrs16, int e_len,
+                                    const void* tile_offsets, int n_tiles,
+                                    int ntx, int tile_w, int tile_h,
+                                    int chunk, float alpha_min,
+                                    float alpha_max, float t_threshold,
+                                    float log_t_min, int track_ncontrib,
+                                    void* out, void* tile_order,
+                                    void* stream) {
+  return launch(packed_src(attrs16, e_len), tile_offsets, n_tiles, ntx,
+                tile_w, tile_h, chunk, alpha_min, alpha_max, t_threshold,
+                log_t_min, track_ncontrib, out, tile_order, stream);
+}
+
+// The entries through their Gaussians: entry_gauss (E,) int32 and
+// entry_valid (E,) bool per slot, and the five per-Gaussian attribute
+// tensors (tile_stage.cuh EntrySrc); the rest as webdgs_rasterize_fwd.
+extern "C" int webdgs_rasterize_fwd_indexed(
+    const void* entry_gauss, const void* entry_valid, const void* center,
+    const void* conic, const void* color, const void* opacity,
+    const void* extents, int e_len, const void* tile_offsets, int n_tiles,
+    int ntx, int tile_w, int tile_h, int chunk, float alpha_min,
+    float alpha_max, float t_threshold, float log_t_min, int track_ncontrib,
+    void* out, void* tile_order, void* stream) {
+  return launch(indexed_src(entry_gauss, entry_valid, center, conic, color,
+                            opacity, extents, e_len),
+                tile_offsets, n_tiles, ntx, tile_w, tile_h, chunk, alpha_min,
+                alpha_max, t_threshold, log_t_min, track_ncontrib, out,
+                tile_order, stream);
 }
 
 // The launch shape for a tile of tile_w x tile_h pixels and this chunk:

@@ -8,7 +8,8 @@ Per view, at the metric resolution:
   3. per sorted entry, the number of flagged pixels of its tile to which it
      contributes -- 1-based position <= the pixel's n_contrib and
      alpha >= alpha_min (:func:`entry_counts`, the wrapper of CUDA kernel
-     ``csrc/importance.cu``);
+     ``csrc/importance.cu``, which reads each entry through the binning's
+     index as the raster kernels do);
   4. per-Gaussian sums of those counts by the segment sum
      (``ops/segsum.py``, one row), averaged over the views.
 
@@ -52,13 +53,9 @@ def metric_flag_map(pred: torch.Tensor, target: torch.Tensor,
     return (norm > threshold).to(torch.float32)
 
 
-def _check_inputs(attrs16, tile_offsets, pix_tiles, ntx, nty, settings):
+def _check_inputs(entries, tile_offsets, pix_tiles, ntx, nty, settings):
+    entries = raster_ops.check_entries(entries, tile_offsets.device)
     n_tiles = ntx * nty
-    if attrs16.dim() != 2 or attrs16.shape[0] != raster_ops.NUM_ROWS or \
-            attrs16.dtype != torch.float32:
-        raise ValueError(f"attrs16 must be ({raster_ops.NUM_ROWS}, E) "
-                         f"float32, got {tuple(attrs16.shape)} "
-                         f"{attrs16.dtype}")
     if tile_offsets.dtype != torch.int32 or \
             tile_offsets.shape != (n_tiles + 1,):
         raise ValueError(f"tile_offsets must be ({n_tiles + 1},) int32")
@@ -67,13 +64,13 @@ def _check_inputs(attrs16, tile_offsets, pix_tiles, ntx, nty, settings):
         raise ValueError(f"pix_tiles must be ({n_tiles}, "
                          f"{settings.tile_px}, 2) float32, got "
                          f"{tuple(pix_tiles.shape)} {pix_tiles.dtype}")
-    for name, t in (("attrs16", attrs16), ("tile_offsets", tile_offsets),
+    for name, t in (("tile_offsets", tile_offsets),
                     ("pix_tiles", pix_tiles)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != attrs16.device:
-            raise ValueError(f"{name} is on {t.device}, attrs16 on "
-                             f"{attrs16.device}")
+    if pix_tiles.device != tile_offsets.device:
+        raise ValueError(f"pix_tiles is on {pix_tiles.device}, the tile "
+                         f"offsets on {tile_offsets.device}")
     if settings.tile_px % 32:
         raise ValueError(f"tile of {settings.tile_px} pixels: the kernel "
                          "votes in whole warps, so it takes a multiple of 32")
@@ -83,6 +80,7 @@ def _check_inputs(attrs16, tile_offsets, pix_tiles, ntx, nty, settings):
                          f"{_MAX_TILE_PX}")
     if settings.chunk <= 0:
         raise ValueError(f"chunk {settings.chunk} must be positive")
+    return entries
 
 
 def entry_counts_plain(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
@@ -133,44 +131,48 @@ def entry_counts_plain(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
     return out
 
 
-def _entry_counts_cuda(attrs16, tile_offsets, pix_tiles, ntx, nty,
+def _entry_counts_cuda(entries, tile_offsets, pix_tiles, ntx, nty,
                        settings):
     lib = _build.library()
-    dev = attrs16.device
+    dev = tile_offsets.device
     n_tiles = ntx * nty
-    out = torch.zeros((attrs16.shape[1],), dtype=torch.float32, device=dev)
+    out = torch.zeros((raster_ops.entry_slots(entries),),
+                      dtype=torch.float32, device=dev)
     if n_tiles == 0:
         return out
+    fn, head = raster_ops.entry_kernel(lib, "webdgs_importance", entries)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.webdgs_importance(
-            attrs16.data_ptr(), attrs16.shape[1], tile_offsets.data_ptr(),
-            pix_tiles.data_ptr(), n_tiles, ntx, settings.tile_w,
-            settings.tile_h, settings.alpha_min, settings.alpha_max,
-            out.data_ptr(), stream)
+        err = fn(*head, tile_offsets.data_ptr(), pix_tiles.data_ptr(),
+                 n_tiles, ntx, settings.tile_w, settings.tile_h,
+                 settings.alpha_min, settings.alpha_max, out.data_ptr(),
+                 stream)
     _build.check(err, "entry_counts")
     trace.count("launches.entry_counts")
     return out
 
 
-def entry_counts(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
+def entry_counts(entries, tile_offsets: torch.Tensor,
                  pix_tiles: torch.Tensor, num_tiles_x: int,
                  num_tiles_y: int, settings: RenderSettings) -> torch.Tensor:
     """Per sorted entry slot, the number of flagged pixels of its tile to
     which it contributes, (E,) float32; zero outside every tile's range.
 
-    attrs16: (16, E) packed entry rows and tile_offsets (T+1,) i32, as the
-    forward rasterizer took them; pix_tiles: (T, P, 2) float32 per-pixel
-    (flag, n_contrib) in the :func:`image_to_tiles` layout.
+    entries: (16, E) packed entry rows or a ``rasterize.EntryAttrs`` and
+    tile_offsets (T+1,) i32, as the forward rasterizer took them;
+    pix_tiles: (T, P, 2) float32 per-pixel (flag, n_contrib) in the
+    :func:`image_to_tiles` layout.
     ``kernel_launches()["entry_counts"]`` counts the CUDA kernel's launches."""
-    _check_inputs(attrs16, tile_offsets, pix_tiles, num_tiles_x,
-                  num_tiles_y, settings)
-    if attrs16.device.type == "cpu":
-        return entry_counts_plain(attrs16, tile_offsets, pix_tiles,
-                                  num_tiles_x, num_tiles_y, settings)
-    if attrs16.device.type != "cuda":
-        raise ValueError(f"unsupported device {attrs16.device}")
-    return _entry_counts_cuda(attrs16, tile_offsets, pix_tiles, num_tiles_x,
+    entries = _check_inputs(entries, tile_offsets, pix_tiles, num_tiles_x,
+                            num_tiles_y, settings)
+    dev = tile_offsets.device
+    if dev.type == "cpu":
+        return entry_counts_plain(raster_ops.packed_rows(entries),
+                                  tile_offsets, pix_tiles, num_tiles_x,
+                                  num_tiles_y, settings)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _entry_counts_cuda(entries, tile_offsets, pix_tiles, num_tiles_x,
                               num_tiles_y, settings)
 
 
@@ -189,9 +191,8 @@ def view_importance_counts(scene_params: dict[str, torch.Tensor],
     # exact tile cull, whose culled pairs never contribute anywhere
     bins = binning_ops.bin_splats(aux, img_w, img_h, settings, attrs=attrs,
                                   with_source=True)
-    attrs16 = raster_ops.pack_entry_attrs(attrs, bins.entry_gauss,
-                                          bins.entry_valid)
-    out = raster_ops.rasterize_tiles(attrs16, bins.tile_offsets, ntx, nty,
+    entries = raster_ops.EntryAttrs.of(attrs, bins)
+    out = raster_ops.rasterize_tiles(entries, bins.tile_offsets, ntx, nty,
                                      settings)
     tiles = raster_ops.tiles_to_image(out, ntx, nty, img_w, img_h, settings)
     pred = raster_ops.composite_background(tiles, settings)
@@ -200,7 +201,7 @@ def view_importance_counts(scene_params: dict[str, torch.Tensor],
     pix = torch.stack([flag, tiles[..., raster_ops.OUT_NCONTRIB]], dim=-1)
     pix_tiles = raster_ops.image_to_tiles(pix, ntx, nty,
                                           settings).contiguous()
-    counts = entry_counts(attrs16, bins.tile_offsets, pix_tiles, ntx, nty,
+    counts = entry_counts(entries, bins.tile_offsets, pix_tiles, ntx, nty,
                           settings)
     return segment_reduce_entries(counts[:, None], bins.entry_valid,
                                   bins.entry_source, bins.gauss_counts)[:, 0]

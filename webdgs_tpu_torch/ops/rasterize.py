@@ -1,27 +1,35 @@
 """Tiled alpha-compositing rasterizer, forward and backward (counterpart
 of webdgs_tpu/ops/rasterize.py:63-86, 347-740, 743-950).
 
-``rasterize_tiles`` is differentiable with respect to ``attrs16`` (a
-``torch.autograd.Function``; ``tile_offsets`` gets no gradient, and the
-cotangents of channels 5-7 -- n_contrib and the spare channels -- are
-ignored).  Its forward is the wrapper of CUDA kernel
-``csrc/rasterize_fwd.cu`` (one CTA per tile, four pixels per thread,
-entries staged through shared memory, tiles launched heaviest first); its
-backward folds the per-pixel suffix term outside the kernel and calls
-:func:`rasterize_tiles_backward`, the wrapper of ``csrc/rasterize_bwd.cu``.
-On a CPU tensor each wrapper runs its plain torch version
-(:func:`rasterize_tiles_plain`, :func:`rasterize_tiles_backward_plain`),
-blocked like the TPU kernels: all tiles in parallel, chunks of
-``settings.chunk`` entries, the exclusive log-transmittance carried across
-chunks, and a tile dropping out once all its pixels have saturated.  On a
-CUDA tensor each launches its kernel or raises.
+The kernels read each entry slot's attributes from one of two inputs:
+- :class:`EntryAttrs`, the render's: the per-Gaussian ``SplatAttrs``
+  fields, read through the binning's ``entry_gauss``/``entry_valid`` by
+  the kernels' own staging of each tile's range (``csrc/tile_stage.cuh``);
+  nothing of size (16, E) is built;
+- packed (16, E) per-entry rows (``pack_entry_attrs``, or the
+  Gaussian-sharded exchange's received rows).
+The choice follows the argument.  ``rasterize_tiles`` is differentiable
+with respect to the packed rows, or to the five fields, whose gradient is
+the per-entry cotangents summed per Gaussian by the segment-sum kernel
+(``ops/segsum.py``, :func:`entry_grads`): always the exact-f32 segment
+sum, deterministic, and never an autograd scatter of an index gather.
+``tile_offsets`` gets no gradient, and the cotangents of channels 5-7 --
+n_contrib and the spare channels -- are ignored.  Its forward is the
+wrapper of CUDA kernel ``csrc/rasterize_fwd.cu`` (one CTA per tile, four
+pixels per thread, entries staged through shared memory, tiles launched
+heaviest first); its backward folds the per-pixel suffix term outside the
+kernel and calls :func:`rasterize_tiles_backward`, the wrapper of
+``csrc/rasterize_bwd.cu``.  On a CPU tensor each wrapper runs its plain
+torch version on the packed rows (:func:`rasterize_tiles_plain`,
+:func:`rasterize_tiles_backward_plain`; :func:`packed_rows` packs
+:class:`EntryAttrs`), blocked like the TPU kernels: all tiles in parallel,
+chunks of ``settings.chunk`` entries, the exclusive log-transmittance
+carried across chunks, and a tile dropping out once all its pixels have
+saturated.  On a CUDA tensor each launches its kernel or raises.
 
-``pack_entry_attrs`` gathers per-Gaussian attributes into per-entry rows.
-Given the binning's ``entry_source``/``gauss_counts`` (the training path),
-the gather is a ``torch.autograd.Function`` whose backward reorders the
-rows by the sort permutation and sums per Gaussian with the segment-sum
-kernel (``ops/segsum.py``): always the exact-f32 segment sum,
-deterministic, and never an autograd scatter of the index gather.
+``pack_entry_attrs`` gathers per-Gaussian attributes into per-entry rows;
+the trace counter ``raster.packed_calls`` counts its calls on the card
+(the render, the training step and the metric views make none).
 
 Alpha semantics (the reference's): alpha = min(alpha_max, op *
 exp(-0.5 * conic quad form)); pixels outside the splat's SnugBox extents
@@ -33,11 +41,13 @@ while the exclusive transmittance is >= t_threshold; n_contrib is the
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from webdgs_tpu_torch import _build, trace
 from webdgs_tpu_torch.config import RenderSettings
+from webdgs_tpu_torch.ops.projection import SplatAttrs
 from webdgs_tpu_torch.ops.segsum import segment_reduce_entries
 
 # attribute-row layout of the packed per-entry splat array (16, E)
@@ -69,28 +79,108 @@ _MAX_CHUNK = 48 * 1024 // (2 * 4 * _RECORD_FLOATS)
 _PLAIN_GROUP_ELEMS = 2 ** 26
 
 
-def _check_inputs(attrs16, tile_offsets, ntx, nty, settings):
-    if attrs16.dim() != 2 or attrs16.shape[0] != NUM_ROWS:
-        raise ValueError(f"attrs16 must be ({NUM_ROWS}, E), got "
-                         f"{tuple(attrs16.shape)}")
-    if attrs16.dtype != torch.float32:
-        raise TypeError(f"attrs16 must be float32, got {attrs16.dtype}")
+class EntryAttrs(NamedTuple):
+    """Per-entry splat attributes read through the binning's index: slot
+    e holds Gaussian ``entry_gauss[e]``'s ``SplatAttrs`` where
+    ``entry_valid[e]``, and zeros elsewhere (its index is then never
+    read): the rows :func:`pack_entry_attrs` would build, never built.
+    With ``entry_source`` and ``gauss_counts`` (``bin_splats(...,
+    with_source=True)``) the fields are differentiable through
+    :func:`rasterize_tiles` (:func:`entry_grads`)."""
+
+    attrs: SplatAttrs
+    entry_gauss: torch.Tensor  # (E,) int32
+    entry_valid: torch.Tensor  # (E,) bool
+    entry_source: torch.Tensor | None = None  # (E,) int32
+    gauss_counts: torch.Tensor | None = None  # (N,) int32
+
+    @classmethod
+    def of(cls, attrs: SplatAttrs, bins) -> "EntryAttrs":
+        """The entries of ``bins``, a ``binning.Binning`` of ``attrs``."""
+        return cls(attrs, bins.entry_gauss, bins.entry_valid,
+                   bins.entry_source, bins.gauss_counts)
+
+
+def entry_slots(entries) -> int:
+    """E, the slots of packed (16, E) rows or of an :class:`EntryAttrs`."""
+    if isinstance(entries, torch.Tensor):
+        return entries.shape[1]
+    return entries.entry_gauss.shape[0]
+
+
+def check_entries(entries, device: torch.device):
+    """Shapes, types and devices (``device``) of packed (16, E) rows or an
+    :class:`EntryAttrs`; returns them as the kernels read them (the
+    fields, index and flags contiguous).  Reads nothing back."""
+    if isinstance(entries, torch.Tensor):
+        if entries.dim() != 2 or entries.shape[0] != NUM_ROWS:
+            raise ValueError(f"attrs16 must be ({NUM_ROWS}, E), got "
+                             f"{tuple(entries.shape)}")
+        if entries.dtype != torch.float32:
+            raise TypeError(f"attrs16 must be float32, got {entries.dtype}")
+        if not entries.is_contiguous():
+            raise ValueError("attrs16 must be contiguous")
+        if entries.device != device:
+            raise ValueError(f"attrs16 is on {entries.device}, the tile "
+                             f"offsets on {device}")
+        return entries
+    a, gauss, valid = entries.attrs, entries.entry_gauss, entries.entry_valid
+    if gauss.dim() != 1 or gauss.dtype != torch.int32:
+        raise TypeError("entry_gauss must be (E,) int32")
+    if valid.shape != gauss.shape or valid.dtype != torch.bool:
+        raise TypeError(f"entry_valid must be ({gauss.shape[0]},) bool")
+    n = a.opacity.shape[0]
+    for name, t, shape in zip(SplatAttrs._fields, a,
+                              ((n, 2), (n, 3), (n, 3), (n,), (n, 2))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for name, t in zip(("entry_gauss", "entry_valid") + SplatAttrs._fields,
+                       (gauss, valid, *a)):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the tile offsets on "
+                             f"{device}")
+    return entries._replace(
+        attrs=SplatAttrs(*(t.contiguous() for t in a)),
+        entry_gauss=gauss.contiguous(), entry_valid=valid.contiguous())
+
+
+def packed_rows(entries) -> torch.Tensor:
+    """The (16, E) rows the plain versions read: packed rows themselves,
+    or the pack of an :class:`EntryAttrs` (zeros at invalid slots)."""
+    if isinstance(entries, torch.Tensor):
+        return entries
+    return _gather_pack(_pack_per_gauss(entries.attrs), entries.entry_gauss,
+                        entries.entry_valid)
+
+
+def entry_kernel(lib, name: str, entries):
+    """The C entry point ``name`` that reads ``entries`` and its leading
+    arguments: the packed rows and E, or (``<name>_indexed``) the index,
+    the flags, the five fields and E."""
+    if isinstance(entries, torch.Tensor):
+        return getattr(lib, name), (entries.data_ptr(), entries.shape[1])
+    ptrs = [t.data_ptr() for t in (entries.entry_gauss, entries.entry_valid,
+                                   *entries.attrs)]
+    return getattr(lib, name + "_indexed"), (*ptrs, entry_slots(entries))
+
+
+def _check_inputs(entries, tile_offsets, ntx, nty, settings):
+    entries = check_entries(entries, tile_offsets.device)
     if tile_offsets.dtype != torch.int32:
         raise TypeError(f"tile_offsets must be int32, got "
                         f"{tile_offsets.dtype}")
     if tile_offsets.shape != (ntx * nty + 1,):
         raise ValueError(f"tile_offsets must be ({ntx * nty + 1},), got "
                          f"{tuple(tile_offsets.shape)}")
-    for name, t in (("attrs16", attrs16), ("tile_offsets", tile_offsets)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if attrs16.device != tile_offsets.device:
-        raise ValueError("attrs16 and tile_offsets are on different devices")
+    if not tile_offsets.is_contiguous():
+        raise ValueError("tile_offsets must be contiguous")
     if not 0 < settings.tile_px <= 1024:
         raise ValueError(f"tile of {settings.tile_px} pixels: one CUDA "
                          "block holds 1 to 1024")
     if not 0 < settings.chunk <= _MAX_CHUNK:
         raise ValueError(f"chunk must be in [1, {_MAX_CHUNK}]")
+    return entries
 
 
 def _pixel_coords(ntx: int, n_tiles: int, settings: RenderSettings,
@@ -200,10 +290,10 @@ def rasterize_tiles_plain(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
     return out
 
 
-def _rasterize_tiles_cuda(attrs16, tile_offsets, ntx, nty, settings,
+def _rasterize_tiles_cuda(entries, tile_offsets, ntx, nty, settings,
                           track_ncontrib):
     lib = _build.library()
-    dev = attrs16.device
+    dev = tile_offsets.device
     n_tiles = ntx * nty
     out = torch.empty((n_tiles, NUM_OUT, settings.tile_px),
                       dtype=torch.float32, device=dev)
@@ -212,71 +302,96 @@ def _rasterize_tiles_cuda(attrs16, tile_offsets, ntx, nty, settings,
     # scratch for the launch order the kernel computes (heaviest tiles
     # first, by entry count)
     order = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    fn, head = entry_kernel(lib, "webdgs_rasterize_fwd", entries)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.webdgs_rasterize_fwd(
-            attrs16.data_ptr(), attrs16.shape[1], tile_offsets.data_ptr(),
-            n_tiles, ntx, settings.tile_w, settings.tile_h, settings.chunk,
-            settings.alpha_min, settings.alpha_max, settings.t_threshold,
-            math.log(settings.t_threshold), int(track_ncontrib),
-            out.data_ptr(), order.data_ptr(), stream)
+        err = fn(*head, tile_offsets.data_ptr(), n_tiles, ntx,
+                 settings.tile_w, settings.tile_h, settings.chunk,
+                 settings.alpha_min, settings.alpha_max,
+                 settings.t_threshold, math.log(settings.t_threshold),
+                 int(track_ncontrib), out.data_ptr(), order.data_ptr(),
+                 stream)
     _build.check(err, "rasterize_tiles")
     trace.count("launches.rasterize_tiles")
     return out
 
 
+def _entries(index, data):
+    """The entries a :class:`_RasterizeTiles` holds: its one packed tensor
+    (``index`` None), or the five fields with ``index``, the rest of an
+    :class:`EntryAttrs`."""
+    return data[0] if index is None else EntryAttrs(SplatAttrs(*data),
+                                                    *index)
+
+
 class _RasterizeTiles(torch.autograd.Function):
-    """The forward kernel, with the backward kernel as its VJP."""
+    """The forward kernel, with the backward kernel as its VJP: with
+    respect to the packed rows, or to the five fields of an
+    :class:`EntryAttrs` (then summed per Gaussian, :func:`entry_grads`).
+    ``data`` are the tensors differentiated; ``index`` the rest."""
 
     @staticmethod
-    def forward(ctx, attrs16, tile_offsets, num_tiles_x, num_tiles_y,
-                settings, track_ncontrib):
-        if attrs16.device.type == "cpu":
-            out = rasterize_tiles_plain(attrs16, tile_offsets, num_tiles_x,
-                                        num_tiles_y, settings, track_ncontrib)
-        elif attrs16.device.type == "cuda":
-            out = _rasterize_tiles_cuda(attrs16, tile_offsets, num_tiles_x,
+    def forward(ctx, index, tile_offsets, num_tiles_x, num_tiles_y,
+                settings, track_ncontrib, *data):
+        entries = _entries(index, data)
+        dev = tile_offsets.device
+        if dev.type == "cpu":
+            out = rasterize_tiles_plain(packed_rows(entries), tile_offsets,
+                                        num_tiles_x, num_tiles_y, settings,
+                                        track_ncontrib)
+        elif dev.type == "cuda":
+            out = _rasterize_tiles_cuda(entries, tile_offsets, num_tiles_x,
                                         num_tiles_y, settings, track_ncontrib)
         else:
-            raise ValueError(f"unsupported device {attrs16.device}")
-        ctx.save_for_backward(attrs16, tile_offsets, out)
+            raise ValueError(f"unsupported device {dev}")
+        ctx.save_for_backward(tile_offsets, out, *data)
+        ctx.index = index
         ctx.grid = (num_tiles_x, num_tiles_y, settings)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        attrs16, tile_offsets, out = ctx.saved_tensors
+        tile_offsets, out, *data = ctx.saved_tensors
+        entries = _entries(ctx.index, data)
         ntx, nty, settings = ctx.grid
         # the forward outputs enter the backward only through the
         # per-pixel suffix term sum_c g_c*out_c (c = r,g,b,acc) + g_T*T
         suffix = (torch.sum(g[:, 0:4] * out[:, 0:4], dim=1, keepdim=True)
                   + g[:, OUT_T:OUT_T + 1] * out[:, OUT_T:OUT_T + 1])
         gpix5 = torch.cat([g[:, 0:4], suffix], dim=1).contiguous()
-        d_attrs = rasterize_tiles_backward(attrs16, tile_offsets, gpix5, ntx,
+        d_attrs = rasterize_tiles_backward(entries, tile_offsets, gpix5, ntx,
                                            nty, settings)
-        return d_attrs, None, None, None, None, None
+        grads = ((d_attrs,) if ctx.index is None
+                 else tuple(entry_grads(entries, d_attrs)))
+        return (None,) * 6 + grads
 
 
-def rasterize_tiles(attrs16: torch.Tensor, tile_offsets: torch.Tensor,
+def rasterize_tiles(entries, tile_offsets: torch.Tensor,
                     num_tiles_x: int, num_tiles_y: int,
                     settings: RenderSettings,
                     track_ncontrib: bool = True) -> torch.Tensor:
-    """attrs16: (16, E) f32 packed per-entry attributes in sorted
-    tile/depth order; tile_offsets: (T+1,) i32 entry ranges (a plain cumsum
-    of per-tile counts, ending at most at E).
+    """entries: (16, E) f32 packed per-entry attributes in sorted
+    tile/depth order, or an :class:`EntryAttrs` (the same rows read
+    through the binning's index); tile_offsets: (T+1,) i32 entry ranges (a
+    plain cumsum of per-tile counts, ending at most at E).
 
     Returns (T, NUM_OUT, P) channel-planar per-tile pixels
     [r, g, b, acc_alpha, T_final, n_contrib, 0, 0] without background;
     channel 5 reads 0 unless ``track_ncontrib``.  Differentiable with
-    respect to ``attrs16``.  Tile ranges past [0, E] are clamped (by the
-    kernels and the plain versions alike), so the offsets are never read
-    back to the host: nothing here waits for the device.
-    ``kernel_launches()["rasterize_tiles"]`` counts the forward kernel's
-    launches.
+    respect to the packed rows or the fields.  Tile ranges past [0, E]
+    are clamped (by the kernels and the plain versions alike), so the
+    offsets are never read back to the host: nothing here waits for the
+    device.  ``kernel_launches()["rasterize_tiles"]`` counts the forward
+    kernel's launches.
     """
-    _check_inputs(attrs16, tile_offsets, num_tiles_x, num_tiles_y, settings)
-    return _RasterizeTiles.apply(attrs16, tile_offsets, num_tiles_x,
-                                 num_tiles_y, settings, track_ncontrib)
+    entries = _check_inputs(entries, tile_offsets, num_tiles_x, num_tiles_y,
+                            settings)
+    if isinstance(entries, torch.Tensor):
+        index, data = None, (entries,)
+    else:
+        index, data = tuple(entries[1:]), tuple(entries.attrs)
+    return _RasterizeTiles.apply(index, tile_offsets, num_tiles_x,
+                                 num_tiles_y, settings, track_ncontrib, *data)
 
 
 def _check_gpix(gpix5, n_tiles, settings):
@@ -376,39 +491,40 @@ def rasterize_tiles_backward_plain(attrs16: torch.Tensor,
     return d_attrs
 
 
-def _rasterize_tiles_backward_cuda(attrs16, tile_offsets, gpix5, ntx, nty,
+def _rasterize_tiles_backward_cuda(entries, tile_offsets, gpix5, ntx, nty,
                                    settings):
     lib = _build.library()
-    dev = attrs16.device
+    dev = tile_offsets.device
     n_tiles = ntx * nty
-    d_attrs = torch.zeros_like(attrs16)
+    d_attrs = torch.zeros((NUM_ROWS, entry_slots(entries)),
+                          dtype=torch.float32, device=dev)
     if n_tiles == 0:
         return d_attrs
     # scratch for the launch order the kernel computes (heaviest tiles
     # first, by entry count)
     order = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    fn, head = entry_kernel(lib, "webdgs_rasterize_bwd", entries)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.webdgs_rasterize_bwd(
-            attrs16.data_ptr(), attrs16.shape[1], tile_offsets.data_ptr(),
-            gpix5.data_ptr(), n_tiles, ntx, settings.tile_w,
-            settings.tile_h, settings.chunk, settings.alpha_min,
-            settings.alpha_max, settings.t_threshold,
-            math.log(settings.t_threshold), d_attrs.data_ptr(),
-            order.data_ptr(), stream)
+        err = fn(*head, tile_offsets.data_ptr(), gpix5.data_ptr(), n_tiles,
+                 ntx, settings.tile_w, settings.tile_h, settings.chunk,
+                 settings.alpha_min, settings.alpha_max,
+                 settings.t_threshold, math.log(settings.t_threshold),
+                 d_attrs.data_ptr(), order.data_ptr(), stream)
     _build.check(err, "rasterize_tiles_backward")
     trace.count("launches.rasterize_tiles_backward")
     return d_attrs
 
 
-def rasterize_tiles_backward(attrs16: torch.Tensor,
-                             tile_offsets: torch.Tensor, gpix5: torch.Tensor,
-                             num_tiles_x: int, num_tiles_y: int,
+def rasterize_tiles_backward(entries, tile_offsets: torch.Tensor,
+                             gpix5: torch.Tensor, num_tiles_x: int,
+                             num_tiles_y: int,
                              settings: RenderSettings) -> torch.Tensor:
     """Per-entry cotangents (16, E) of the rasterizer: rows 0-8 (centre,
     conic, colour, opacity) for the slots of each tile's range, zero
     elsewhere (extent rows, spare rows, slots past the total, chunks a
-    saturated tile never reached).
+    saturated tile never reached).  ``entries`` as :func:`rasterize_tiles`
+    takes them.
 
     gpix5: (T, NUM_GPIX, P) planar pixel cotangents d(r, g, b, acc) plus
     the per-pixel suffix term in channel GPIX_SUFFIX.  Tile ranges past
@@ -416,17 +532,20 @@ def rasterize_tiles_backward(attrs16: torch.Tensor,
     offsets are never read back to the host: nothing here waits for the
     device.  ``kernel_launches()["rasterize_tiles_backward"]`` counts
     the CUDA kernel's launches."""
-    _check_inputs(attrs16, tile_offsets, num_tiles_x, num_tiles_y, settings)
+    entries = _check_inputs(entries, tile_offsets, num_tiles_x, num_tiles_y,
+                            settings)
     _check_gpix(gpix5, num_tiles_x * num_tiles_y, settings)
-    if gpix5.device != attrs16.device:
-        raise ValueError("gpix5 and attrs16 are on different devices")
-    if attrs16.device.type == "cpu":
-        return rasterize_tiles_backward_plain(attrs16, tile_offsets, gpix5,
+    dev = tile_offsets.device
+    if gpix5.device != dev:
+        raise ValueError("gpix5 and the entries are on different devices")
+    if dev.type == "cpu":
+        return rasterize_tiles_backward_plain(packed_rows(entries),
+                                              tile_offsets, gpix5,
                                               num_tiles_x, num_tiles_y,
                                               settings)
-    if attrs16.device.type != "cuda":
-        raise ValueError(f"unsupported device {attrs16.device}")
-    return _rasterize_tiles_backward_cuda(attrs16, tile_offsets, gpix5,
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _rasterize_tiles_backward_cuda(entries, tile_offsets, gpix5,
                                           num_tiles_x, num_tiles_y, settings)
 
 
@@ -444,48 +563,40 @@ def _pack_per_gauss(attrs) -> torch.Tensor:
 
 
 def _gather_pack(per_gauss, entry_gauss, entry_valid):
-    gathered = torch.where(entry_valid[:, None],
-                           per_gauss[entry_gauss.to(torch.int64)], 0.0)
+    # an invalid slot's index may hold anything: gather row 0 there
+    idx = torch.where(entry_valid, entry_gauss, 0).to(torch.int64)
+    gathered = torch.where(entry_valid[:, None], per_gauss[idx], 0.0)
     return gathered.T.contiguous()
 
 
-class _GatherPackSegsum(torch.autograd.Function):
-    """The entry gather, whose transpose is the per-Gaussian segment sum in
-    expansion order (never autograd's scatter of the index gather, which
-    accumulates by atomics on the card)."""
-
-    @staticmethod
-    def forward(ctx, per_gauss, entry_gauss, entry_valid, entry_source,
-                gauss_counts):
-        ctx.save_for_backward(entry_valid, entry_source, gauss_counts)
-        return _gather_pack(per_gauss, entry_gauss, entry_valid)
-
-    @staticmethod
-    def backward(ctx, g):
-        entry_valid, entry_source, gauss_counts = ctx.saved_tensors
-        d_per_gauss = segment_reduce_entries(g.T, entry_valid, entry_source,
-                                             gauss_counts)
-        return d_per_gauss, None, None, None, None
+def entry_grads(entries: EntryAttrs, d_attrs: torch.Tensor) -> SplatAttrs:
+    """The fields' gradient from per-entry cotangents (16, E): summed per
+    Gaussian in expansion order by the segment sum (never autograd's
+    scatter of the index gather, which accumulates by atomics on the
+    card), then split into the five fields, as the transpose of
+    :func:`pack_entry_attrs` would."""
+    if entries.entry_source is None or entries.gauss_counts is None:
+        raise ValueError("the gradient through the entry index needs "
+                         "entry_source and gauss_counts (bin_splats(..., "
+                         "with_source=True))")
+    d = segment_reduce_entries(d_attrs.T, entries.entry_valid,
+                               entries.entry_source, entries.gauss_counts)
+    return SplatAttrs(center_px=d[:, ROW_CX:ROW_CY + 1],
+                      conic=d[:, ROW_CA:ROW_CC + 1],
+                      color=d[:, ROW_R:ROW_B + 1], opacity=d[:, ROW_OP],
+                      extents=d[:, ROW_EX:ROW_EY + 1])
 
 
 def pack_entry_attrs(attrs, entry_gauss: torch.Tensor,
-                     entry_valid: torch.Tensor,
-                     entry_source: torch.Tensor | None = None,
-                     gauss_counts: torch.Tensor | None = None
-                     ) -> torch.Tensor:
+                     entry_valid: torch.Tensor) -> torch.Tensor:
     """Gather per-Gaussian SplatAttrs into depth-sorted per-entry rows
-    (16, E), contiguous.  Invalid slots are zeroed everywhere: opacity 0
-    makes them exact no-ops in the compositor.
-
-    With ``entry_source`` and ``gauss_counts`` (``bin_splats(...,
-    with_source=True)``), gradients reach ``attrs`` through the segment
-    sum of :class:`_GatherPackSegsum`; without them the gather is for
-    forward-only callers."""
-    per_gauss = _pack_per_gauss(attrs)
-    if entry_source is not None and gauss_counts is not None:
-        return _GatherPackSegsum.apply(per_gauss, entry_gauss, entry_valid,
-                                       entry_source, gauss_counts)
-    return _gather_pack(per_gauss, entry_gauss, entry_valid)
+    (16, E), contiguous.  Invalid slots are zeroed everywhere (their index
+    is never read): opacity 0 makes them exact no-ops in the compositor.
+    The kernels read an :class:`EntryAttrs` of the same entries without
+    this pack; ``raster.packed_calls`` counts the calls on the card."""
+    if entry_gauss.device.type == "cuda":
+        trace.count("raster.packed_calls")
+    return _gather_pack(_pack_per_gauss(attrs), entry_gauss, entry_valid)
 
 
 def composite_background(tiles: torch.Tensor,

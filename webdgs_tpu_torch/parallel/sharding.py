@@ -480,7 +480,7 @@ class _SendGather(torch.autograd.Function):
     transpose puts each valid send slot's cotangent back at its local
     sorted slot (an injective map; dropped entries get zeros) and sums per
     Gaussian in expansion order with the segment-sum kernel, as the
-    single-device gather does (ops/rasterize.py:_GatherPackSegsum)."""
+    single-device render does (ops/rasterize.py:entry_grads)."""
 
     @staticmethod
     def forward(ctx, per_g, ex: _Exchange):

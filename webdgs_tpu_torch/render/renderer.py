@@ -2,11 +2,11 @@
 webdgs_tpu/render/renderer.py:27-247); ``render_from_attrs(for_grad=True)``
 is the training step's differentiable render.
 
-project -> bin (expand kernel) -> pack -> rasterize (forward kernel) ->
-image.  PyTorch runs eagerly, so there is no jit: ``render_compiled`` is
+project -> bin (expand kernel) -> rasterize (forward kernel, staging each
+entry through the binning's index) -> image.  PyTorch runs eagerly, so there is no jit: ``render_compiled`` is
 ``render`` itself.  Frames whose tile grid reaches the 16-bit tile-key
 limit render in serial bands (``render_banded``): one projection, then
-per band the restrict, shift, bin, pack and rasterize of ``_render_band``,
+per band the restrict, shift, bin and rasterize of ``_render_band``,
 which the tile-sharded render of ``parallel/sharding.py`` shares.
 """
 
@@ -55,12 +55,9 @@ def render_from_attrs(attrs: SplatAttrs, aux: SplatAux, img_w: int,
                                       capacity=entry_capacity,
                                       with_source=for_grad, attrs=attrs)
     with trace.span("raster"):
-        attrs16 = raster_ops.pack_entry_attrs(
-            attrs, bins.entry_gauss, bins.entry_valid,
-            entry_source=bins.entry_source, gauss_counts=bins.gauss_counts)
-        out = raster_ops.rasterize_tiles(attrs16, bins.tile_offsets, ntx,
-                                         nty, settings,
-                                         track_ncontrib=not for_grad)
+        out = raster_ops.rasterize_tiles(
+            raster_ops.EntryAttrs.of(attrs, bins), bins.tile_offsets, ntx,
+            nty, settings, track_ncontrib=not for_grad)
     return out, bins
 
 

@@ -21,7 +21,10 @@ thread (None at a root).  ``thread`` is the native thread id.
 
 Counters: ``count(name)`` adds to an integer that is always kept (the
 kernel wrappers' launch counts, ``launches.<wrapper>``, read by
-``ops.kernel_launches()``); ``counters()`` returns them.  ``gauge(name,
+``ops.kernel_launches()``; ``raster.packed_calls``, the calls of
+``ops/rasterize.py:pack_entry_attrs`` on the card, which the render, the
+training step and the metric views never make); ``counters()`` returns
+them.  ``gauge(name,
 value)`` records a value the host already holds, with its time, only
 while tracing is on (``slots.alive`` and ``slots.capacity`` at each
 ``train.step``).
