@@ -27,7 +27,6 @@ import torch
 
 import run
 import scenes
-from reference import gs as ref
 
 
 def _free(dev) -> None:
@@ -37,6 +36,7 @@ def _free(dev) -> None:
 
 
 def train_readings(lc, seed, dev, control: bool) -> list[dict]:
+    ref = run.reference(lc)
     st = run.setup_train(lc, seed, dev)
     del st["trainer"]
     _free(dev)
@@ -61,8 +61,8 @@ def view_readings(lc, seed, dev, control: bool, seconds: float) -> list[dict]:
     out = [{"kind": "program", **res["numbers"]}]
     _free(dev)
     if control:
-        cfg, tr = lc["config"], lc["traffic"]
-        rs = run.ref_settings(cfg)
+        cfg, tr, ref = lc["config"], lc["traffic"], run.reference(lc)
+        rs = run.ref_settings(lc)
         fov = math.radians(cfg["fov_y_deg"])
         params = scenes.make_scene(cfg, seed, dev)
         alive = torch.ones(params["means"].shape[0], dtype=torch.bool,

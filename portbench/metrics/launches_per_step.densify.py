@@ -1,0 +1,7 @@
+"""launches_per_step.densify: ``launches_per_step`` in a densify-phase cell, which reports
+``train_it_per_s.densify`` in place of ``train_it_per_s``."""
+
+import runpy
+from pathlib import Path
+
+read = runpy.run_path(str(Path(__file__).with_name("launches_per_step.py")))["read"]

@@ -1,0 +1,7 @@
+"""train_step_mfu.densify: ``train_step_mfu`` in a densify-phase cell, which reports
+``train_it_per_s.densify`` in place of ``train_it_per_s``."""
+
+import runpy
+from pathlib import Path
+
+read = runpy.run_path(str(Path(__file__).with_name("train_step_mfu.py")))["read"]

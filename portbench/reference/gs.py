@@ -34,6 +34,19 @@ Semantics held here (the system's, written out independently):
 ``Prec("tf32")`` is the control: every product of the projection and of
 the SH colour takes its inputs rounded to TF32 (10 mantissa bits), as a
 tensor core would, and accumulates in float32.
+
+A configuration names its plain reference by its ``reference`` key
+(``reference/<name>.py``); this module is the one where it has none.  A
+reference for other mathematics is a module of its own, which the harness
+(``run.py``, ``calibrate.py``) calls through these names alone:
+``camera``, ``gradients``, ``adam``, ``zero_state``, ``importance``,
+``resize_targets``, ``grown_capacity``, ``densify``, ``render``, ``Prec``
+and ``TILE``, with this module's signatures.  It may add
+``prepare(p, cams, cfg) -> p``: ``run.reference_train`` calls it with
+the parameters and every view's camera before the compared steps and
+again after an event, and goes on with the parameters it returns (a state
+that depends on every training view, such as a per-Gaussian filter).
+This module has none.
 """
 
 from __future__ import annotations

@@ -6,12 +6,14 @@
 Everything a cell needs is found by name: the cell in BENCHMARK.json, its
 configuration in ``configs/<config>.json``, its traffic in
 ``traffic/<traffic>.json``, the limits of its output check in
-``limits/<cell>.json`` and one reader per per-layer metric in
-``metrics/<metric>.py``.  The run builds the scene, views and targets from
-the seed on the card, warms up, measures for ``--seconds``, checks what
-the timed path produced against the plain reference (``reference/``), and
-prints one JSON line last on standard output.  It exits 2, printing no
-result, without a CUDA device.
+``limits/<cell>.json``, one reader per per-layer metric in
+``metrics/<metric>.py`` and the configuration's plain reference in
+``reference/<name>.py`` (the configuration's ``reference`` key, ``gs``
+where it has none).  The run builds the scene, views and targets from the
+seed on the card, warms up, measures for ``--seconds``, checks what the
+timed path produced against the plain reference, and prints one JSON line
+last on standard output.  It exits 2, printing no result, without a CUDA
+device, and 3 where JAX or the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -22,11 +24,13 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
+import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import random  # noqa: E402
+import re  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -47,18 +51,46 @@ import torch  # noqa: E402
 
 import counts  # noqa: E402
 import scenes  # noqa: E402
-from reference import gs as ref  # noqa: E402
 
 # the packed (N, 59) rows of the trainer's Adam moments, by leaf
 LEAVES = {"means": (0, 3), "quats": (3, 7), "log_scales": (7, 10),
           "opacity_logits": (10, 11), "sh": (11, 59)}
 # an event's decision counts are compared against at least this many
 EVENT_FLOOR = 100
+# a name of BENCHMARK.json, and so of a file under portbench/
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+# the rate a run of each traffic kind takes over its window
+RATE_UNIT = {"train": "it/s", "view": "frames/s"}
+# top-level modules that no run may have loaded: JAX and the JAX package
+BANNED = frozenset({"jax", "jaxlib", "flax", "webdgs_tpu"})
 
 
 def load_json(path: Path) -> dict:
     with open(path) as f:
         return json.load(f)
+
+
+def load_reference(cfg: dict):
+    """The configuration's plain reference: ``reference/<name>.py`` for
+    its ``reference`` key, ``gs`` where it has none.  What the harness
+    calls in it is listed in ``reference/gs.py``'s docstring."""
+    name = cfg.get("reference", "gs")
+    missing = FileNotFoundError(
+        f"configuration {cfg.get('name')!r} names the plain reference "
+        f"{name!r}: no file {HERE / 'reference' / f'{name}.py'}")
+    if not (isinstance(name, str) and NAME.fullmatch(name)):
+        raise missing
+    try:
+        return importlib.import_module(f"reference.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"reference.{name}":
+            raise
+        raise missing from None
+
+
+def reference(lc: dict):
+    """The loaded cell's plain reference."""
+    return load_reference(lc["config"])
 
 
 def load_cell(name: str, root: Path = ROOT) -> dict:
@@ -75,8 +107,10 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in e2e_names)]
     base = root / "portbench"
+    config = load_json(base / "configs" / f"{cell['config']}.json")
+    load_reference(config)  # a name with no file fails here
     return {"bench": bench, "cell": cell, "e2e": e2e, "per_layer": per_layer,
-            "config": load_json(base / "configs" / f"{cell['config']}.json"),
+            "config": config,
             "traffic": load_json(base / "traffic"
                                  / f"{cell['traffic']}.json"),
             "limits": load_json(base / "limits" / f"{name}.json"),
@@ -92,8 +126,8 @@ def read_metric(path: Path, ctx: dict):
     return mod.read(ctx)
 
 
-def ref_settings(cfg: dict) -> dict:
-    return {**cfg["render"], **ref.TILE}
+def ref_settings(lc: dict) -> dict:
+    return {**lc["config"]["render"], **reference(lc).TILE}
 
 
 def program_settings(cfg: dict):
@@ -106,6 +140,51 @@ def program_settings(cfg: dict):
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def banned_modules() -> list[str]:
+    """Loaded modules of JAX or the JAX package, by top-level name."""
+    return sorted({m.split(".")[0] for m in sys.modules} & BANNED)
+
+
+def gc_counts() -> list[int]:
+    return [g["collections"] for g in gc.get_stats()]
+
+
+def allocator(dev) -> tuple[int, int]:
+    """The caching allocator's device segments allocated so far and the
+    bytes it holds: (0, 0) off the card."""
+    if dev.type != "cuda":
+        return 0, 0
+    st = torch.cuda.memory_stats(dev)
+    return st.get("segment.all.allocated", 0), st.get("reserved_bytes.all"
+                                                       ".current", 0)
+
+
+def report_chunks(stamps: list[float], gc_before: list[int],
+                  alloc_before: tuple[int, int], dev) -> None:
+    """Print each chunk's time between consecutive ``stamps`` (the
+    loop's own clock reads), the three largest stalls (a chunk's time
+    over the median chunk's) with where in the window they fell, the
+    collector's runs and the allocator's growth in the window."""
+    chunks = [b - a for a, b in zip(stamps, stamps[1:])]
+    gcs = [b - a for a, b in zip(gc_before, gc_counts())]
+    segs, held = allocator(dev)
+    print(f"chunks_ms: {[round(c * 1e3, 3) for c in chunks]}",
+          file=sys.stderr)
+    if chunks:
+        med = statistics.median(chunks)
+        worst = sorted(range(len(chunks)), key=lambda i: chunks[i] - med,
+                       reverse=True)[:3]
+        print(f"chunk median {med * 1e3:.3f} ms over {len(chunks)}; stalls: "
+              + ", ".join(f"+{(chunks[i] - med) * 1e3:.3f} ms in chunk {i} "
+                          f"at {stamps[i] - stamps[0]:.3f} s"
+                          for i in worst), file=sys.stderr)
+    print(f"gc collections in the window by generation: {gcs}",
+          file=sys.stderr)
+    print(f"allocator in the window: {segs - alloc_before[0]} segments "
+          f"allocated, {alloc_before[1]} -> {held} bytes held",
+          file=sys.stderr)
 
 
 def power_limit() -> str:
@@ -361,13 +440,17 @@ def setup_train(lc: dict, seed: int, dev) -> dict:
     return out
 
 
-def reference_train(lc: dict, seed: int, st: dict, dev, prec: ref.Prec,
+def reference_train(lc: dict, seed: int, st: dict, dev, prec,
                     fault: str | None = None) -> dict:
     """The reference's compared steps from the same start, views and
-    targets, and the event when the steps hold one.  ``prec`` and
-    ``fault`` make the control and the planted faults of the output
-    check's calibration (``calibrate.py``)."""
-    cfg = lc["config"]
+    targets, and the event when the steps hold one.  ``prec`` (the
+    reference's ``Prec``) and ``fault`` make the control and the planted
+    faults of the output check's calibration (``calibrate.py``).  A
+    reference with a ``prepare`` gets the parameters and every view's
+    camera before the steps and after the event, and the parameters it
+    returns go on."""
+    cfg, ref = lc["config"], reference(lc)
+    prepare = getattr(ref, "prepare", None)
     w, h = cfg["width"], cfg["height"]
     fov = math.radians(cfg["fov_y_deg"])
     hp = cfg["trainer"]["adam"]
@@ -381,6 +464,9 @@ def reference_train(lc: dict, seed: int, st: dict, dev, prec: ref.Prec,
     n = st["n"]
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     state = ref.zero_state(p)
+    if prepare is not None:
+        every = [ref.camera(*pose, w, h, fov, dev) for pose in st["poses"]]
+        p = prepare(p, every, cfg)
     out = {"losses": []}
     post = None
     for i, v in enumerate(st["views"], 1):
@@ -413,6 +499,8 @@ def reference_train(lc: dict, seed: int, st: dict, dev, prec: ref.Prec,
                             fault)
             p, state, n = r["params"], r["state"], r["rows"]
             alive = torch.ones(n, dtype=torch.bool, device=dev)
+            if prepare is not None:
+                p = prepare(p, every, cfg)
             out["event"], out["capacity"] = r["event"], cap
             out["event_state"] = state_norms(
                 {k: p[k].reshape(n, -1) for k in LEAVES}, "params")
@@ -525,8 +613,10 @@ def run_train(lc: dict, seed: int, seconds: float, trace: bool, dev) -> dict:
                           sched.should_densify(trainer.iteration)))
 
     it0 = trainer.iteration
+    gc0, alloc0 = gc_counts(), allocator(dev)
     t0 = time.perf_counter()
-    while not tally["broken"] and time.perf_counter() - t0 < seconds:
+    stamps = [t0]
+    while not tally["broken"] and stamps[-1] - t0 < seconds:
         if trace:
             advance(1, timed=True)
         elif tr["chunk"] == "to_next_event":
@@ -535,17 +625,19 @@ def run_train(lc: dict, seed: int, seconds: float, trace: bool, dev) -> dict:
             advance(trainer.next_densify_iteration() - trainer.iteration)
         else:
             advance(tr["chunk"])
+        stamps.append(time.perf_counter())
     sync(dev)
     window = time.perf_counter() - t0
     iters = trainer.iteration - it0
     print(f"window: {window:.3f} s, {iters} iterations from "
           f"{it0}; events (cloned, split, pruned, out): {events}",
           file=sys.stderr)
+    report_chunks(stamps, gc0, alloc0, dev)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     result = {"attempted": tally["attempted"], "failed": tally["failed"],
               "setup_s": setup_s, "peak": peak,
-              "metrics": {"train_it_per_s": iters / window}}
+              "rate": iters / window}
     ctx = None
     if trace:
         # the profiler comes last: once it has run, every launch of the
@@ -573,7 +665,7 @@ def run_train(lc: dict, seed: int, seconds: float, trace: bool, dev) -> dict:
         probe = ctx["probe"]
         probe.update(_probe_counts_train(lc, probe.pop("scene"),
                                          probe.pop("alive"), st, dev))
-    refo = reference_train(lc, seed, st, dev, ref.Prec("fp32"))
+    refo = reference_train(lc, seed, st, dev, reference(lc).Prec("fp32"))
     result["numbers"] = compare_train(st["prog"], refo)
     result["ctx"] = ctx
     return result
@@ -582,8 +674,8 @@ def run_train(lc: dict, seed: int, seconds: float, trace: bool, dev) -> dict:
 def _probe_counts_train(lc, p_cpu, alive_cpu, st, dev) -> dict:
     """The probe's work, counted by the plain reference from its inputs:
     the scene as the run left it and the probe's views."""
-    cfg = lc["config"]
-    rs = ref_settings(cfg)
+    cfg, ref = lc["config"], reference(lc)
+    rs = ref_settings(lc)
     w, h = cfg["width"], cfg["height"]
     fov = math.radians(cfg["fov_y_deg"])
     p = {k: v.to(dev) for k, v in p_cpu.items()}
@@ -655,20 +747,23 @@ def run_view(lc: dict, seed: int, seconds: float, trace: bool, dev) -> dict:
         if i < tr["compare_from"]:
             kept[i] = (pose, img)
 
+    gc0, alloc0 = gc_counts(), allocator(dev)
     t0 = time.perf_counter()
+    stamps = [t0]
     i = 0
-    while not tally["broken"] and time.perf_counter() - t0 < seconds:
+    while not tally["broken"] and stamps[-1] - t0 < seconds:
         frame(i)
         i += 1
+        stamps.append(time.perf_counter())
     sync(dev)
     window = time.perf_counter() - t0
     print(f"window: {window:.3f} s, {tally['attempted']} frames",
           file=sys.stderr)
+    report_chunks(stamps, gc0, alloc0, dev)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     result = {"attempted": tally["attempted"], "failed": tally["failed"],
               "setup_s": setup_s, "peak": peak,
-              "metrics": {"view_fps": (tally["attempted"] - tally["failed"])
-                          / window}}
+              "rate": (tally["attempted"] - tally["failed"]) / window}
     ctx = None
     if trace:
         # the probe frame at a fixed pose, timed; then the profiler, last
@@ -700,7 +795,8 @@ def run_view(lc: dict, seed: int, seconds: float, trace: bool, dev) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    rs = ref_settings(cfg)
+    ref = reference(lc)
+    rs = ref_settings(lc)
     fov = math.radians(cfg["fov_y_deg"])
     p = {k: v.to(dev) for k, v in init.items()}
     alive = torch.ones(n, dtype=torch.bool, device=dev)
@@ -758,9 +854,14 @@ def run_cell(lc: dict, seed: int, seconds: float, trace: bool, dev) -> dict:
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
-        vals = dict(res["metrics"], setup_s=res["setup_s"])
-        metrics = {m["name"]: {"value": vals[m["name"]], "unit": m["unit"]}
-                   for m in lc["e2e"]}
+        # setup_s, and the rate over the window under each other name
+        metrics = {}
+        for m in lc["e2e"]:
+            if m["name"] != "setup_s" and m["unit"] != RATE_UNIT[kind]:
+                raise KeyError(f"a {kind} run reads no {m['name']!r}")
+            metrics[m["name"]] = {"value": res["setup_s"] if m["name"]
+                                  == "setup_s" else res["rate"],
+                                  "unit": m["unit"]}
     device = {"platform": "gpu" if dev.type == "cuda" else dev.type,
               "kind": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),
@@ -794,6 +895,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     print(f"card: {power_limit()}", file=sys.stderr)
     out = run_cell(lc, args.seed, args.seconds, bool(args.trace), dev)
+    bad = banned_modules()
+    if bad:
+        print(f"loaded in this process, which the port may not load: {bad}",
+              file=sys.stderr)
+        return 3
     for name, c in out["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}",
               file=sys.stderr)

@@ -12,12 +12,14 @@ to importing neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -64,7 +66,8 @@ def test_every_name_resolves():
         # every reader returns nothing when it finds nothing to read
         for path in lc["readers"].values():
             assert run.read_metric(path, {"kind": "none"}) is None
-    assert names >= {"train_it_per_s", "view_fps", "setup_s"}
+    assert names >= {"train_it_per_s", "train_it_per_s.densify", "view_fps",
+                     "setup_s"}
 
 
 def test_a_cell_is_added_by_files_and_one_entry(tmp_path):
@@ -124,15 +127,103 @@ def test_counts_of_a_crafted_tile():
     assert bound == "bytes" and s == pytest.approx(8288 / 3.35e12)
 
 
+def _printed(err: str, key: str) -> str:
+    (line,) = [x for x in err.splitlines() if x.startswith(key)]
+    return line[len(key):]
+
+
 @pytest.mark.parametrize("cell", ["tandt-densify", "mip360-refine",
                                   "mip360-view"])
-def test_reference_agrees_with_the_port(cell):
-    out = run.run_cell(tiny(cell), SEED, 1.0, False, CPU)
+def test_reference_agrees_with_the_port(cell, capsys):
+    lc = tiny(cell)
+    out = run.run_cell(lc, SEED, 1.0, False, CPU)
     assert out["correct"], out["checks"]
     assert out["attempted"] > 0 and out["failed"] == 0
     assert list(out)[-1] == "checks"
+    assert set(out["metrics"]) == {m["name"] for m in lc["e2e"]}
     for name, c in out["checks"].items():
         assert c["value"] < 1e-5, name
+    # the chunk times printed add up to the window
+    err = capsys.readouterr().err
+    window = float(_printed(err, "window: ").split(" s,")[0])
+    chunks = json.loads(_printed(err, "chunks_ms: "))
+    assert len(chunks) >= 1
+    assert sum(chunks) * 1e-3 == pytest.approx(window, rel=0.01)
+    assert "stalls: " in err
+    assert _printed(err, "gc collections in the window by generation: ")
+
+
+def test_each_cell_resolves_to_gs():
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for w in bench["workloads"]:
+        lc = run.load_cell(w["name"])
+        assert "reference" not in lc["config"], w["name"]
+        assert run.reference(lc) is ref, w["name"]
+
+
+def _stub(calls: list):
+    """A reference module that is ``gs`` with a ``prepare`` that records
+    its calls."""
+    stub = types.ModuleType("reference.stub")
+    stub.__dict__.update({k: v for k, v in vars(ref).items()
+                          if not k.startswith("__")})
+
+    def prepare(p, cams, cfg):
+        calls.append((p["means"].shape[0], len(cams), cfg["name"]))
+        return p
+
+    stub.prepare = prepare
+    return stub
+
+
+def test_a_named_reference_is_loaded_and_prepared(monkeypatch):
+    calls = []
+    stub = _stub(calls)
+    monkeypatch.setitem(sys.modules, "reference.stub", stub)
+    lc = tiny("tandt-densify")
+    lc["config"]["reference"] = "stub"
+    assert run.reference(lc) is stub
+    st = run.setup_train(lc, SEED, CPU)
+    got = run.reference_train(lc, SEED, st, CPU, stub.Prec("fp32"))
+    # prepare saw every view before the compared steps, and the rows the
+    # event left after it
+    views = lc["config"]["views"]
+    name = lc["config"]["name"]
+    assert calls == [(st["n"], views, name),
+                     (got["event"]["out"], views, name)]
+    base = copy.deepcopy(lc)
+    del base["config"]["reference"]
+    want = run.reference_train(base, SEED, st, CPU, ref.Prec("fp32"))
+    assert run.compare_train(got, want) == run.compare_train(want, want)
+
+
+def test_an_unknown_reference_names_its_file(tmp_path):
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(HERE, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = tmp_path / "portbench" / "configs" / "mip360-2.96m-sh3.json"
+    path.write_text(json.dumps({**json.loads(path.read_text()),
+                                "reference": "no-such-ref"}))
+    with pytest.raises(FileNotFoundError, match="reference/no-such-ref.py"):
+        run.load_cell("mip360-view", tmp_path)
+    for bad in ("../gs", "", 3):
+        with pytest.raises(FileNotFoundError, match="mip360-2.96m-sh3"):
+            run.load_reference({"name": "mip360-2.96m-sh3",
+                                "reference": bad})
+
+
+def test_jax_in_the_process_is_found():
+    """By whole top-level names: the port's own name begins with the JAX
+    package's and is not one of them."""
+    code = ("import sys; sys.path.insert(0, 'portbench'); import run; "
+            "import webdgs_tpu_torch.train.trainer; "
+            "assert run.banned_modules() == [], run.banned_modules(); "
+            "sys.modules['jax.numpy'] = sys; "
+            "sys.modules['webdgs_tpu.ops'] = sys; "
+            "sys.modules['webdgs_tpu_torch_extra'] = sys; "
+            "assert run.banned_modules() == ['jax', 'webdgs_tpu']")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=300)
 
 
 def test_the_event_is_compared():

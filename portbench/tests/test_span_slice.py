@@ -156,6 +156,10 @@ def test_the_span_readers_of_a_crafted_trace():
     assert _read("event_idle_ms", ctx) == pytest.approx(4.0)
     assert _read("event_syncs", ctx) == 1
     assert _read("project_ms.view", ctx) is None
+    # a densify-phase cell's twins read what their training readers do
+    for name in ("project_ms", "bin_ms", "project_vjp_ms", "adam_ms",
+                 "slot_use"):
+        assert _read(f"{name}.densify", ctx) == _read(f"{name}.train", ctx)
     events, spans = view_trace()
     ctx = {"kind": "view", "spans": span_slice.join(events, BASE, spans)}
     assert _read("project_ms.view", ctx) == pytest.approx(0.6)
